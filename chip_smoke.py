@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port of the CZ gate engine once on one GPU.
+"""Drive the PyTorch / CUDA port's main paths once on one GPU: the CZ gate
+engine and the BB-LDPC sample + BP decode path.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,15 @@ each; any failure raises and the script exits non-zero:
   6. sweep    the bench sweep (bench_gate.build_workload) at dim 3, batch
               32768, and dim 4, batch 8192: sims/s and the kernels' launch
               counts in that run, then each kernel's time vs its twin's
+  7. K3       the min-sum c2v kernel vs its twin, bit-exact, at bf16 and f32
+              on (26, 288, 65536), (26, 288, 512) and (7, 13, 1000), inputs
+              with a padding slab, ties and exact zeros
+  8. bb       the BB-LDPC memory path (bench_bb.build_bb_workload): gross
+              code [[144,12]], 3 rounds, p = 1e-3, 65,536 shots, one warm-up
+              rep and 3 timed reps queued before any sync: shots/s,
+              p_logical with its Wilson CI, K3's launch count in that run;
+              the card's tiered decode vs the CPU twin path on 4096 shots;
+              then K3's time vs its twin's
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -40,6 +50,9 @@ K1_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/phase_scan.cu"
 K1_REPLACES = "noisyquantumsimulator_tpu/solver/scan_pallas.py:71"
 K2_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/masked_squaring.cu"
 K2_REPLACES = "noisyquantumsimulator_tpu/ops/expm_pallas.py:35"
+K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
+K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
+K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
 
 
 def say(phase: str, msg: str) -> None:
@@ -349,6 +362,162 @@ def phase_sweep(F_c64, errs_k1, errs_k2):
     return kernels
 
 
+def _c2v_inputs(rng, w, n_chk, S):
+    """Messages (w, n_chk, S) and syndrome signs (n_chk, S), float32 numpy:
+    normal LLR-like values with padding slabs (+1e30 in the trailing slots
+    of some checks, as low-degree checks have), forced ties (slot 1 = slot
+    0, and equal magnitudes of opposite sign) and exact zeros."""
+    m = rng.standard_normal((w, n_chk, S), dtype=np.float32)
+    m *= np.float32(4.0)
+    m[w - 1, ::2] = 1e30
+    if w > 3:
+        m[w - 2, ::3] = 1e30
+    m[1, :, ::7] = m[0, :, ::7]
+    m[2, :, 3::11] = 0.0
+    m[min(3, w - 1), 1::2, 5::13] = -m[0, 1::2, 5::13]
+    sgn = np.where(rng.random((n_chk, S)) < 0.5, -1.0, 1.0).astype(np.float32)
+    return m, sgn
+
+
+def phase_k3():
+    import torch
+    from noisyquantumsimulator_tpu_torch import _kernels
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda
+    lib = _kernels.load()
+    require(lib.nqs_bp_c2v_max_slots() == bp_cuda.MAX_SLOTS,
+            "K3 slot limit of the library = bp_cuda.MAX_SLOTS")
+    rng = np.random.default_rng(SEED + 3)
+    errs = {}
+    for shape in K3_SHAPES:
+        m, sgn = _c2v_inputs(rng, *shape)
+        m32 = torch.as_tensor(m, device="cuda")
+        s32 = torch.as_tensor(sgn, device="cuda")
+        del m
+        for dt in (torch.bfloat16, torch.float32):
+            msg, ss = m32.to(dt), s32.to(dt)
+            before = bp_cuda.c2v.launches
+            got = bp_cuda.c2v(msg, ss, 0.75)
+            require(bp_cuda.c2v.launches == before + 1, "K3 launch counted")
+            ref = bp_cuda._c2v_plain(msg, ss, 0.75)
+            torch.cuda.synchronize()
+            require(got.shape == msg.shape and got.dtype == dt, "K3 output shape")
+            require(bool(torch.isfinite(got.float()).all()), "K3 output finite")
+            err = float((got.float() - ref.float()).abs().max())
+            require(err == 0.0, f"K3 {shape} {dt}: max|kernel - twin| = {err:.3e}"
+                    " (must be bit-exact)")
+            errs[(shape, str(dt))] = err
+            say("7 K3", f"{shape} {dt}: max|kernel - twin| = {err} (bit-exact "
+                f"required); padding, ties and zeros in the input")
+            del msg, ss, got, ref
+        del m32, s32
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_bb(errs_k3):
+    import torch
+    from noisyquantumsimulator_tpu_torch import bench_bb
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native
+    from noisyquantumsimulator_tpu_torch.qec.dem_decoder import (
+        decoder_from_numpy)
+    from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
+
+    shots, reps = 65536, 3
+    t0 = time.perf_counter()
+    w = bench_bb.build_bb_workload(rounds=3, p=1e-3, shots=shots,
+                                   fast_iters=6, device="cuda")
+    dec = w.decoder
+    say("8 bb", f"gross code [[{w.n},{w.k}]], 3 rounds, p = 1e-3: "
+        f"{w.circuit.n_detectors} detectors, {dec.n_mech} mechanisms, "
+        f"w_max {int(dec.H.sum(axis=1).max())}; host build "
+        f"{time.perf_counter() - t0:.2f} s; {w.decoder_label}")
+    t0 = time.perf_counter()
+    native.build()
+    say("8 bb", f"native OSD-0 library {native.library_path()} "
+        f"({time.perf_counter() - t0:.2f} s, g++ {' '.join(native.CXX_FLAGS)})")
+
+    def gen(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return g
+
+    # warm-up rep (allocator, cuBLAS handles, the library load)
+    f, b, dets_r, bel_r, obs_r = w.e2e(gen(SEED))
+    w.osd_host(int(b), dets_r, bel_r, obs_r)
+    torch.cuda.synchronize()
+
+    # --- the main path, counted: only the timed reps run between reset and read
+    bp_cuda.c2v.launches = 0
+    t0 = time.perf_counter()
+    fails = bad = 0
+    # queue every rep before syncing any, so host OSD of rep r overlaps
+    # the device work of rep r + 1
+    outs = [w.e2e(gen(SEED + 100 + r)) for r in range(reps)]
+    for f, b, dets_r, bel_r, obs_r in outs:
+        nb = int(b)
+        fails += int(f) + w.osd_host(nb, dets_r, bel_r, obs_r)
+        bad += nb
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bp_cuda.c2v.launches
+    n_tot = shots * reps
+    rate = n_tot / wall
+    p_l = fails / n_tot
+    lo, hi = wilson_ci(fails, n_tot)
+    say("8 bb", f"{reps} reps x {shots} shots in {wall:.4f} s -> {rate:.1f} "
+        f"shots/s; e2e_n_errors = {fails}, p_logical = {p_l:.3e} (95% Wilson "
+        f"CI [{lo:.3e}, {hi:.3e}]); non-converged fraction {bad / n_tot:.4e} "
+        f"({bad} OSD residue rows, cap {w.cap} per rep); K3 launches in the "
+        f"timed reps: {launches}")
+    require(launches > 0, "K3 launched on the BB path")
+    require(p_l <= 1e-4, f"p_logical_shot {p_l:.3e} <= 1e-4")
+
+    # --- the card's tiered decode vs the CPU twin path on one detector batch
+    o = w.sampler(gen(SEED + 7))
+    batch = o["detectors"][:4096].to(torch.float32)
+    kw = dict(n_iters=60, kernel="slots", fast_iters=w.fast_iters,
+              fast_dtype=torch.bfloat16, retry_damping=0.5, retry_iters=90,
+              retry_cap_divisor=128)
+    cpu_dec = decoder_from_numpy(dec.H, dec.obs_mask, dec.probs, "cpu", **kw)
+    cuda_dec = decoder_from_numpy(dec.H, dec.obs_mask, dec.probs, "cuda", **kw)
+    pg, bg, _ = cuda_dec._full(batch)
+    t0 = time.perf_counter()
+    pc, bc, _ = cpu_dec._full(batch.cpu())
+    cpu_s = time.perf_counter() - t0
+    pg, bg = pg.cpu(), bg.cpu()
+    agree = float((pg == pc).float().mean())
+    say("8 bb", f"4096 shots, card vs CPU twin path: non-converged {int(bg.sum())}"
+        f" vs {int(bc.sum())}, bad flags equal {bool(torch.equal(bg, bc))}, "
+        f"predictions agree on {agree:.6f} (CPU {cpu_s:.2f} s)")
+    require(torch.equal(bg, bc), "bad flags of the card and the CPU twin agree")
+    require(agree >= 0.999, f"predictions agree on {agree:.6f} >= 0.999")
+
+    # --- K3 vs twin times at the path's shapes (not counted)
+    rng = np.random.default_rng(SEED + 8)
+    timing = {}
+    for shape, dt, reps_t in (((26, 288, 65536), torch.bfloat16, 20),
+                              ((26, 288, 512), torch.float32, 200)):
+        m, sgn = _c2v_inputs(rng, *shape)
+        msg = torch.as_tensor(m, device="cuda").to(dt)
+        ss = torch.as_tensor(sgn, device="cuda").to(dt)
+        del m
+        k_ms, p_ms = _kernel_vs_plain_ms(
+            lambda: bp_cuda.c2v(msg, ss, 0.75),
+            lambda: bp_cuda._c2v_plain(msg, ss, 0.75), reps=reps_t)
+        nbytes = 2 * msg.numel() * msg.element_size() + ss.numel() * ss.element_size()
+        timing[shape] = (k_ms, p_ms)
+        say("8 bb", f"K3 {shape} {dt}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f}"
+            f" GB/s of {nbytes / 1e6:.1f} MB moved), plain twin {p_ms:.4f} ms")
+        del msg, ss
+        torch.cuda.empty_cache()
+    shape = (26, 288, 65536)
+    return {"name": "K3 bp_c2v", "route": "cuda", "source": K3_SOURCE,
+            "replaces": K3_REPLACES, "launches": launches,
+            "max_abs_err": errs_k3[(shape, "torch.bfloat16")],
+            "ms": timing[shape][0], "plain_ms": timing[shape][1],
+            "shape": "w_max=26 n_chk=288 S=65536 bf16"}
+
+
 def main() -> int:
     dev = phase_device()
     if dev is None:
@@ -362,6 +531,8 @@ def main() -> int:
     errs_k2 = phase_k2()
     F = phase_gate()
     kernels = phase_sweep(F["torch.complex64"], errs_k1, errs_k2)
+    errs_k3 = phase_k3()
+    kernels.append(phase_bb(errs_k3))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels (nvcc + ctypes).
 
-The sources under `csrc/` are compiled by nvcc into one shared library with
-a plain C interface:
+The sources under `csrc/` are compiled by nvcc, one process per source, all
+started together, and linked into one shared library with a plain C
+interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libnqs_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu   (each source)
+    nvcc -shared -o _build/libnqs_kernels-<hash>.so <tmp>/*.o
 
 The build runs at first use, i.e. when a CUDA tensor first reaches a kernel
 wrapper, never at import. It is cached by a hash of the sources and the
@@ -21,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import tempfile
 import subprocess
 import threading
 import time
@@ -30,12 +33,16 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
+    "nqs_bp_c2v_f32": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "nqs_bp_c2v_bf16": (_P, _P, _P, _I, _I, _I, _F, _P),
+    "nqs_bp_c2v_max_slots": (),
     "nqs_phase_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_phase_scan_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_masked_squaring_f32": (_P, _P, _P, _I, _I, _I, _P),
@@ -84,20 +91,38 @@ def build() -> Path:
         build_info.setdefault("cached", True)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources() if p.suffix == ".cu"]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode}):\n{text[-4000:]}")
+        if not failed:
+            tmp = Path(tmpdir) / out.name
+            cmd = [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+            else:
+                os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stderr[-4000:]}")
-    os.replace(tmp, out)       # atomic: a concurrent build sees all or none
-    build_info.update(seconds=seconds, cached=False, command=" ".join(cmd))
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    build_info.update(seconds=seconds, cached=False,
+                      command=" ".join(jobs[0][0]) + " (one per source)")
     return out
 
 

@@ -1,0 +1,112 @@
+"""The BB-LDPC circuit-level memory workload: sample + tiered BP + OSD-0.
+
+Counterpart of the reference's `bench.py` `main_bb` (`--bb`): the
+[[144, 12, 12]] gross code under `rounds` rounds of circuit-level noise at
+rate p. One end-to-end rep on the device is
+
+  1. sample `shots` shots of detectors and observables (fast_sampler)
+  2. tiered DEM-BP (DemBPDecoder._full): `fast_iters` bf16 min-sum on every
+     shot, then a damped float32 90-iteration retry on the compacted
+     non-converged tail; kernel K3 runs every check-node update
+  3. score the predictions against the observables, count failures among
+     the converged shots, and compact the still-unconverged residue
+     (detectors, beliefs, observables) into `cap` rows
+
+and on the host, native OSD-0 on that residue (`osd_host`). `e2e` makes no
+host synchronisation, so callers can queue several reps before reading any
+(as `main_bb` does, letting host OSD overlap device work).
+
+This module builds the workload and has no timing code of its own; callers
+time it (chip_smoke.py does).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Union
+
+import numpy as np
+import torch
+
+from .qec.dem_decoder import DemBPDecoder
+from .qec.fast_sampler import build_fast_sampler
+from .qec.ldpc import bb_memory_circuit, css_n_k, gross_code
+from .qec.native import osd0_batch_native
+
+
+@dataclass
+class BBWorkload:
+    e2e: Callable            # e2e(generator) -> (fails, n_bad, dets, beliefs, obs)
+    osd_host: Callable       # osd_host(n_bad, dets, beliefs, obs) -> failures
+    decoder: DemBPDecoder
+    circuit: object
+    sampler: Callable
+    n: int                   # code length
+    k: int                   # logical qubits (observables)
+    cap: int                 # residue rows shipped to host OSD per rep
+    fast_iters: int
+    decoder_label: str
+
+
+def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
+                      fast_iters: int = 6,
+                      device: Union[str, torch.device] = "cuda",
+                      Hx: Optional[np.ndarray] = None,
+                      Hz: Optional[np.ndarray] = None) -> BBWorkload:
+    """The `main_bb` workload on `device` (default code: the gross code).
+
+    Decoder settings are `main_bb`'s: at p <= 1.5e-3 the lean budgets
+    (fast_iters bf16 iterations, retry capacity shots // 128, residue cap
+    shots // 64); above it at least 8 fast iterations, retry capacity
+    shots // 32 and residue cap shots // 16."""
+    dev = torch.device(device)
+    if Hx is None or Hz is None:
+        Hx, Hz = gross_code()
+    n, k = css_n_k(Hx, Hz)
+    circuit = bb_memory_circuit(Hx, Hz, rounds, p)
+    sampler = build_fast_sampler(circuit, shots, dev)
+    lean = p <= 1.5e-3
+    eff_iters = fast_iters if lean else max(fast_iters, 8)
+    dec = DemBPDecoder(circuit, n_iters=60, kernel="slots",
+                       fast_iters=eff_iters, fast_dtype=torch.bfloat16,
+                       retry_damping=0.5, retry_iters=90,
+                       retry_cap_divisor=128 if lean else 32, device=dev)
+    bits = torch.arange(k, dtype=torch.int32, device=dev)
+    cap = min(shots, max(shots // (64 if lean else 16), 32))
+    obs_cols = np.stack([(dec.obs_mask >> b) & 1 for b in range(k)],
+                        axis=1)                               # (n_var, k)
+
+    def e2e(generator: torch.Generator):
+        o = sampler(generator)
+        pred, bad, beliefs = dec._full(o["detectors"].to(torch.float32))
+        obs = o["observables"].to(torch.int32)                # (S, k)
+        pb = (pred[:, None] >> bits[None, :]) & 1
+        fail = (pb != obs).any(dim=1)
+        # converged shots are final; non-converged ones ship to host OSD.
+        # topk sorts, so the n_bad flagged shots come first
+        _, idx = torch.topk(bad.to(torch.int32), cap)
+        return ((fail & ~bad).sum(), bad.sum(),
+                o["detectors"].index_select(0, idx),
+                beliefs.index_select(0, idx), obs.index_select(0, idx))
+
+    def osd_host(n_bad: int, dets_r, bel_r, obs_r) -> int:
+        """OSD-0 the residue rows; returns the failures among them."""
+        if n_bad > cap:
+            raise RuntimeError(f"residue cap {cap} < non-converged {n_bad}: "
+                               "the failure count would be short")
+        if n_bad == 0:
+            return 0
+        dets_h = dets_r[:n_bad].cpu().numpy()
+        bel_h = bel_r[:n_bad].cpu().numpy()
+        obs_h = obs_r[:n_bad].cpu().numpy()
+        est = osd0_batch_native(dec.H, dets_h, bel_h)
+        pb = (est.astype(np.int64) @ obs_cols) & 1            # (R, k)
+        return int((pb != obs_h).any(axis=1).sum())
+
+    label = (f"tiered slot-BP (min-sum {eff_iters} iters bf16 + damped "
+             "min-sum 90-iter retry) + C++ OSD-0 on the non-converged residue")
+    return BBWorkload(e2e=e2e, osd_host=osd_host, decoder=dec,
+                      circuit=circuit, sampler=sampler, n=n, k=k, cap=cap,
+                      fast_iters=eff_iters, decoder_label=label)
+
+
+__all__ = ["BBWorkload", "build_bb_workload"]

@@ -7,12 +7,14 @@ imports no JAX, so it also runs on a machine without it:
 
 Tolerances: float32 1e-4 and complex64 1e-5 relative to max|twin| (the
 kernel and the library product sum in different orders); float64 and
-complex128 1e-12.
+complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
+at float32 and bfloat16 (one rounding of the same exact product).
 """
 import numpy as np
 import pytest
 import torch
 
+from noisyquantumsimulator_tpu_torch.qec import bp_cuda
 from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
     _masked_squaring_plain, fused_masked_squaring)
 from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
@@ -100,3 +102,71 @@ def test_simulate_cz_gate_cuda_matches_cpu(cuda):
     assert abs(rc.avg_fidelity - rh.avg_fidelity) <= 1e-10
     assert abs(rc.phase_info["controlled_phase_rad"]
                - rh.phase_info["controlled_phase_rad"]) <= 1e-10
+
+
+def _c2v_inputs(w, n_chk, S, seed=0):
+    """LLR-like messages with padding slabs, ties and exact zeros."""
+    rng = np.random.default_rng(seed)
+    m = 4 * rng.standard_normal((w, n_chk, S), dtype=np.float32)
+    m[w - 1, ::2] = 1e30
+    m[1, :, ::7] = m[0, :, ::7]
+    m[2, :, 3::11] = 0.0
+    sgn = np.where(rng.random((n_chk, S)) < 0.5, -1.0, 1.0).astype(np.float32)
+    return m, sgn
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(26, 288, 65536), (26, 288, 512),
+                                   (7, 13, 1000), (32, 3, 129)])
+def test_c2v_kernel_bit_exact_vs_twin(cuda, dtype, shape):
+    m, sgn = _c2v_inputs(*shape)
+    msg = torch.as_tensor(m, device=cuda).to(dtype)
+    ss = torch.as_tensor(sgn, device=cuda).to(dtype)
+    before = bp_cuda.c2v.launches
+    got = bp_cuda.c2v(msg, ss, 0.75)
+    assert bp_cuda.c2v.launches == before + 1
+    ref = bp_cuda._c2v_plain(msg, ss, 0.75)
+    torch.cuda.synchronize()
+    assert got.shape == shape and got.dtype == dtype
+    assert float((got.float() - ref.float()).abs().max()) == 0.0
+
+
+def test_c2v_kernel_rejects_unsupported(cuda):
+    m = torch.ones((5, 4, 64), device=cuda)
+    s = torch.ones((4, 64), device=cuda)
+    with pytest.raises(TypeError):
+        bp_cuda.c2v(m.half(), s.half(), 0.75)
+    with pytest.raises(ValueError):
+        bp_cuda.c2v(m.transpose(1, 2).contiguous().transpose(1, 2), s, 0.75)
+    with pytest.raises(ValueError):
+        bp_cuda.c2v(torch.ones((bp_cuda.MAX_SLOTS + 1, 4, 64), device=cuda), s,
+                    0.75)
+    before = bp_cuda.c2v.launches
+    with pytest.raises(ValueError):
+        bp_cuda.c2v(m, s[:, :32], 0.75)
+    assert bp_cuda.c2v.launches == before
+
+
+def test_dem_decoder_cuda_matches_cpu(cuda):
+    """The tiered decoder at a float32 fast tier gives the same bad flags
+    and, on converged shots, the same predictions on the card as on the
+    CPU (the kernel is bit-exact; only sums of <= d_max terms may round in
+    another order)."""
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    from noisyquantumsimulator_tpu_torch.qec.dem_decoder import (
+        DemBPDecoder, decoder_from_numpy)
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import (
+        build_fast_sampler)
+    c = ldpc.bb_memory_circuit(*ldpc.small_bb_code(), 2, 3e-3)
+    kw = dict(n_iters=25, fast_iters=6, retry_cap_divisor=4)
+    dg = DemBPDecoder(c, device=cuda, **kw)
+    dc = decoder_from_numpy(dg.H, dg.obs_mask, dg.probs, "cpu", **kw)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    dets = build_fast_sampler(c, 2048, cuda)(gen)["detectors"].float()
+    before = bp_cuda.c2v.launches
+    pg, bg, _ = dg._full(dets)
+    assert bp_cuda.c2v.launches == before + 7 + 38
+    pc, bc, _ = dc._full(dets.cpu())
+    assert torch.equal(bg.cpu(), bc)
+    assert float((pg.cpu() == pc)[~bc].float().mean()) >= 0.999
