@@ -5,13 +5,18 @@ started together, and linked into one shared library with a plain C
 interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -c -o <tmp>/<name>.o csrc/<name>.cu   (each source)
+         -Xcompiler -fPIC -Xptxas -v -c -o <tmp>/<name>.o csrc/<name>.cu
+                                                                (each source)
     nvcc -shared -o _build/libnqs_kernels-<hash>.so <tmp>/*.o
 
 The build runs at first use, i.e. when a CUDA tensor first reaches a kernel
 wrapper, never at import. It is cached by a hash of the sources and the
 flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is. Only the sources in this package are compiled.
+is. Only the sources in this package are compiled, unless a caller names
+other sources or adds `-D` defines (a variant is then a library of its own
+hash). ptxas reports each kernel's registers, shared memory and spills into
+`_build/build-<hash>.log`, beside the library of the same hash
+(`ptxas_report`).
 
 Every C entry point returns a `cudaError_t` (0 on success, checked with
 `cudaGetLastError()` right after each launch); `check` raises on anything
@@ -22,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import tempfile
 import subprocess
@@ -33,7 +39,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,18 +80,29 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+def library_path(sources=None, defines=()) -> Path:
+    """The cached library of `sources` (default: every csrc source) built
+    with the extra nvcc arguments `defines` (such as "-DNAME=1")."""
+    srcs = _sources() if sources is None else sorted(Path(p) for p in sources)
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libnqs_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/*.cu into the cached library if it is not there yet.
-    Returns its path; records the seconds taken in `build_info`."""
-    out = library_path()
+def log_path(lib: Path) -> Path:
+    """The nvcc / ptxas log of the library `lib` (same hash)."""
+    return lib.with_name(lib.stem.replace("libnqs_kernels", "build") + ".log")
+
+
+def build(sources=None, defines=()) -> Path:
+    """Compile the .cu files of `sources` (default: csrc/*.cu) with the
+    extra nvcc arguments `defines` into their cached library if it is not
+    there yet. Returns its path; records the seconds taken in
+    `build_info`."""
+    out = library_path(sources, defines)
+    srcs = _sources() if sources is None else sorted(Path(p) for p in sources)
     if out.exists():
         build_info.setdefault("seconds", 0.0)
         build_info.setdefault("cached", True)
@@ -96,9 +113,9 @@ def build() -> Path:
     log = []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         jobs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
+        for src in (p for p in srcs if p.suffix == ".cu"):
             obj = Path(tmpdir) / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -118,7 +135,7 @@ def build() -> Path:
             else:
                 os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    log_path(out).write_text("\n".join(log))
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     build_info.update(seconds=seconds, cached=False,
@@ -126,20 +143,49 @@ def build() -> Path:
     return out
 
 
+def open_library(path: Path):
+    """Load a built library with ctypes and declare the C entry points it
+    has (a variant built from some of the sources has only theirs)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    lib.nqs_error_string.argtypes = [ctypes.c_int]
+    lib.nqs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load():
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.nqs_error_string.argtypes = [ctypes.c_int]
-            lib.nqs_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = open_library(build())
         return _lib
+
+
+def ptxas_report(lib: Path | None = None) -> list:
+    """(kernel, registers, spill store bytes, spill load bytes) for every
+    kernel of the library `lib` (default: the package's, as `load` builds
+    it), read from its build log."""
+    log = log_path(lib if lib is not None else library_path())
+    if not log.exists():
+        return []
+    out, name = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), (-1, -1)    # -1: not reported
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
 
 
 def check(lib, rc: int, what: str) -> None:
@@ -160,4 +206,5 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
-           "library_path", "build_info", "stream_handle", "ptr"]
+           "library_path", "log_path", "open_library", "build_info",
+           "ptxas_report", "stream_handle", "ptr"]

@@ -32,7 +32,7 @@ from .solver.real_rep import (build_real_rep, evolve_real_phased_many,
 
 def build_workload(batch: int, n_steps: int = 300,
                    dtype: torch.dtype = torch.complex64, dim: int = 3,
-                   device: Union[str, torch.device] = "cpu",
+                   device: Union[str, torch.device] = "cuda",
                    ) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
                               torch.Tensor, GatePlan]:
     """(step, scales, plan): step(scales) -> (B,) average CZ fidelities of

@@ -74,7 +74,7 @@ class GatePlan:
     rho0s: np.ndarray            # (5, D, D)
     kets: Dict[str, np.ndarray]
     # where run_plan computes
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
     dtype: torch.dtype = torch.complex128
     # metadata (host-side diagnostics)
     protocol: str = ""
@@ -232,7 +232,7 @@ def plan_cz_gate(
     n_steps_smooth: int = 300,
     n_steps_shaped: int = 500,
     verbose: bool = False,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.complex128,
 ) -> GatePlan:
     """Steps 0-9: resolve every physical parameter into a GatePlan that
@@ -626,7 +626,7 @@ def plan_squaring_bound(plan: GatePlan) -> int:
     return max(1, int(np.ceil(np.log2(max(norm, 1.8) / 1.8))) + 1)
 
 
-def plan_from_numpy(fields: Dict, device: Union[str, torch.device] = "cpu",
+def plan_from_numpy(fields: Dict, device: Union[str, torch.device] = "cuda",
                     dtype: torch.dtype = torch.complex128) -> GatePlan:
     """A GatePlan computed on `device` in `dtype` from bare arrays.
 
@@ -692,7 +692,7 @@ def run_plan(plan: GatePlan):
 
 
 def simulate_cz_gate(simulation_inputs: SimInputs,
-                     device: Union[str, torch.device] = "cpu",
+                     device: Union[str, torch.device] = "cuda",
                      dtype: torch.dtype = torch.complex128,
                      **kwargs) -> GateResult:
     """Full pipeline: plan + run + package, computed on `device` in complex

@@ -72,7 +72,7 @@ class DemBPDecoder:
                  retry_damping: float = 0.5,
                  retry_iters: Optional[int] = None,
                  retry_cap_divisor: int = 32,
-                 device: Union[str, torch.device] = "cpu",
+                 device: Union[str, torch.device] = "cuda",
                  _arrays: Optional[Tuple] = None):
         H, obs, probs = (_arrays if _arrays is not None
                          else dem_arrays(circuit, min_prob))
@@ -197,7 +197,7 @@ class DemBPDecoder:
 
 
 def decoder_from_numpy(H: np.ndarray, obs_mask: np.ndarray, probs: np.ndarray,
-                       device: Union[str, torch.device] = "cpu",
+                       device: Union[str, torch.device] = "cuda",
                        **decoder_kw) -> DemBPDecoder:
     """A DemBPDecoder built from host arrays instead of a circuit: H
     (n_det, n_mech) 0/1, obs_mask (n_mech,) observable bitmasks, probs

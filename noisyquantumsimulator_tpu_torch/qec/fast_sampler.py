@@ -41,7 +41,7 @@ _EXACT_F32 = 1 << 24      # float32 holds every integer below this exactly
 
 
 def build_fast_sampler(circuit: Circuit, shots: int,
-                       device: Union[str, torch.device] = "cpu"):
+                       device: Union[str, torch.device] = "cuda"):
     """Compile `circuit` into a single-matmul detector sampler on `device`.
 
     Returns sample(generator) -> {"detectors": (shots, n_det) uint8,
@@ -271,7 +271,7 @@ def build_fast_sampler(circuit: Circuit, shots: int,
 
 
 def sample_circuit_fast(circuit: Circuit, shots: int, seed: int = 0,
-                        device: Union[str, torch.device] = "cpu") -> Dict:
+                        device: Union[str, torch.device] = "cuda") -> Dict:
     """One sample of `shots` shots from a generator seeded with `seed`, as
     host numpy arrays."""
     fn = build_fast_sampler(circuit, shots, device)

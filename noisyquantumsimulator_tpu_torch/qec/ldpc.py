@@ -162,7 +162,7 @@ class BPDecoder:
     error_prob: float = 1e-3
     n_iters: int = 30
     scale: float = 0.75     # normalized min-sum damping
-    device: Union[str, torch.device] = "cpu"
+    device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
         H = np.asarray(self.H, dtype=np.uint8)
@@ -303,7 +303,7 @@ def run_bb_memory(Hx: Optional[np.ndarray] = None,
                   Hz: Optional[np.ndarray] = None,
                   p: float = 1e-2, shots: int = 2000, seed: int = 0,
                   n_iters: int = 50,
-                  device: Union[str, torch.device] = "cpu"
+                  device: Union[str, torch.device] = "cuda"
                   ) -> LDPCMemoryResult:
     """Code-capacity X-error memory test of a BB code:
     sample iid X errors (host numpy, from `seed`), decode with BP on Hz
@@ -575,7 +575,7 @@ def run_bb_circuit_memory(Hx: Optional[np.ndarray] = None,
                           rounds: int = 3, p: float = 1e-3,
                           shots: int = 20000, seed: int = 0,
                           n_iters: int = 60,
-                          device: Union[str, torch.device] = "cpu") -> Dict:
+                          device: Union[str, torch.device] = "cuda") -> Dict:
     """Full circuit-level BB memory: fast-sampler shots + DEM-BP decoding
     on `device`, host OSD-0 (native) on the non-converged shots.
 

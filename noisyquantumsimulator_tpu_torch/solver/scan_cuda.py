@@ -9,7 +9,8 @@ schedule; returns (B, S, n), n = D + 2P.
 The first and last frame rotations are torch ops; the n_seg-step loop in
 between (rotate by dphi_k * cq, then v <- v U^T) is the kernel
 (`csrc/phase_scan.cu`), which keeps each block of schedules in shared memory
-for all steps. `evolve_real_phased_many_cuda` dispatches on the tensor's
+for all steps. Its float32 product runs on the tensor cores as a 3xTF32
+split (float32-level accuracy); float64 runs on the FP64 pipes. `evolve_real_phased_many_cuda` dispatches on the tensor's
 device: CUDA runs the kernel, CPU runs `_evolve_real_phased_many_plain`, any
 other device raises. Nothing falls back from the kernel to the twin.
 """

@@ -159,7 +159,8 @@ def test_dense_bp_decoder_matches_reference():
     err = (rng.random((128, Hz.shape[1])) < 0.02).astype(np.uint8)
     syn = (err @ Hz.T) % 2
     e0, b0 = jl.BPDecoder(Hz, error_prob=0.02, n_iters=15)._decode_with_beliefs(syn)
-    e1, b1 = tl.BPDecoder(Hz, error_prob=0.02, n_iters=15)._decode_with_beliefs(syn)
+    e1, b1 = tl.BPDecoder(Hz, error_prob=0.02, n_iters=15,
+                          device="cpu")._decode_with_beliefs(syn)
     assert (e0 == e1).mean() >= 0.999
     assert np.abs(b0 - b1).max() <= 1e-6 * np.abs(b0).max()
 
@@ -170,7 +171,7 @@ def test_run_bb_memory_matches_reference():
     last bits, which can flip a hard decision or an OSD column order)."""
     kw = dict(p=0.03, shots=200, seed=3, n_iters=20)
     r0 = jl.run_bb_memory(**kw)
-    r1 = tl.run_bb_memory(**kw)
+    r1 = tl.run_bb_memory(**kw, device="cpu")
     assert (r1.n, r1.k) == (r0.n, r0.k) == (72, 12)
     assert r1.syndrome_weight_mean == r0.syndrome_weight_mean
     assert abs(r1.p_logical_shot - r0.p_logical_shot) <= 0.01

@@ -6,7 +6,8 @@ imports no JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: float32 1e-4 and complex64 1e-5 relative to max|twin| (the
-kernel and the library product sum in different orders); float64 and
+kernels and the library products sum in different orders; K1's float32
+product is the 3xTF32 split on the tensor cores); float64 and
 complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
 at float32 and bfloat16 (one rounding of the same exact product).
 """
@@ -49,6 +50,11 @@ def _scan_inputs(D, P, B, S, n_seg, seed=3):
     (16, 120, 9, 5, 20),     # dim-4 layout, U^T from global memory
     (2, 3, 5, 7, 9),         # tiny n, S not dividing anything
     (9, 36, 3, 20, 4),       # many rows per schedule
+    (9, 36, 60, 5, 300),     # dim-3 layout, the full 300 steps, 3 blocks
+    (16, 120, 13, 5, 30),    # dim-4 layout, last block holds 1 of 12 schedules
+    (9, 36, 4, 5, 1),        # a single step
+    (16, 120, 1, 5, 300),    # one schedule, S = 5, the full 300 steps
+    (2, 3, 3, 150, 3),       # S larger than one block's default rows
 ])
 def test_phase_scan_kernel_matches_twin(cuda, dtype, D, P, B, S, n_seg):
     args = [torch.as_tensor(a, device=cuda).to(dtype)

@@ -35,7 +35,7 @@ def smooth_jp_results():
         jr = jsim.simulate_cz_gate(jcfg.SmoothJPSimulationInputs(),
                                    n_steps_smooth=60)
         tr = tsim.simulate_cz_gate(tcfg.SmoothJPSimulationInputs(),
-                                   n_steps_smooth=60)
+                                   n_steps_smooth=60, device="cpu")
     return jr, tr
 
 
@@ -60,7 +60,7 @@ def test_bangbang_per_segment_path_matches_reference():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         jr = jsim.simulate_cz_gate(jcfg.JPSimulationInputs())
-        tr = tsim.simulate_cz_gate(tcfg.JPSimulationInputs())
+        tr = tsim.simulate_cz_gate(tcfg.JPSimulationInputs(), device="cpu")
     assert abs(tr.avg_fidelity - jr.avg_fidelity) <= TOL
     assert abs(tr.phase_info["controlled_phase_rad"]
                - jr.phase_info["controlled_phase_rad"]) <= TOL
@@ -82,7 +82,7 @@ def test_plan_from_numpy_runs_reference_plan():
                - float(jinfo["controlled_phase_rad"])) <= TOL
     bare = {k: getattr(jp, k) for k in ("L0", "Cp", "Cm", "rho0s", "kets")}
     bare["schedule"] = tuple(jp.schedule)
-    tp2 = tsim.plan_from_numpy(bare)
+    tp2 = tsim.plan_from_numpy(bare, device="cpu")
     assert tp2.hilbert_space_dim == 3
     assert abs(float(tsim.run_plan(tp2)[1]) - float(javg)) <= TOL
 
@@ -114,7 +114,7 @@ def test_bench_sweep_matches_reference(dim):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         step, scales, plan = bench_gate.build_workload(
-            6, n_steps=30, dtype=torch.complex128, dim=dim)
+            6, n_steps=30, dtype=torch.complex128, dim=dim, device="cpu")
     got = step(scales).numpy()
     ref = _jax_sweep(plan, scales.numpy())
     assert got.shape == (6,)
@@ -177,3 +177,40 @@ def test_complex_phase_frame_path_matches_reference():
     assert np.abs(got - ref).max() <= TOL
     one = tprop.evolve_rhos_phased(tUb, g, ph, torch.from_numpy(plan.rho0s))
     assert np.abs(one.numpy() - ref[0]).max() <= TOL
+
+
+def _device_defaults():
+    """Every public entry point of the port that takes a device, with the
+    default it falls back to when the caller names none."""
+    import dataclasses
+    import inspect
+    from noisyquantumsimulator_tpu_torch import bench_bb
+    from noisyquantumsimulator_tpu_torch.qec import dem_decoder, fast_sampler, ldpc
+    fns = {"plan_cz_gate": tsim.plan_cz_gate,
+           "plan_from_numpy": tsim.plan_from_numpy,
+           "simulate_cz_gate": tsim.simulate_cz_gate,
+           "build_workload": bench_gate.build_workload,
+           "build_bb_workload": bench_bb.build_bb_workload,
+           "DemBPDecoder": dem_decoder.DemBPDecoder,
+           "decoder_from_numpy": dem_decoder.decoder_from_numpy,
+           "run_bb_memory": ldpc.run_bb_memory,
+           "run_bb_circuit_memory": ldpc.run_bb_circuit_memory,
+           "build_fast_sampler": fast_sampler.build_fast_sampler,
+           "sample_circuit_fast": fast_sampler.sample_circuit_fast}
+    out = {k: inspect.signature(f).parameters["device"].default
+           for k, f in fns.items()}
+    for cls in (tsim.GatePlan, ldpc.BPDecoder):
+        field, = (f for f in dataclasses.fields(cls) if f.name == "device")
+        out[cls.__name__] = field.default
+    return out
+
+
+@pytest.mark.parametrize("name", [
+    "plan_cz_gate", "plan_from_numpy", "simulate_cz_gate", "build_workload",
+    "build_bb_workload", "DemBPDecoder", "decoder_from_numpy", "run_bb_memory",
+    "run_bb_circuit_memory", "build_fast_sampler", "sample_circuit_fast",
+    "GatePlan", "BPDecoder"])
+def test_entry_points_default_to_the_card(name):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (checked without a card: only the declared default)."""
+    assert _device_defaults()[name] == "cuda"

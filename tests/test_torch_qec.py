@@ -97,7 +97,7 @@ def test_dem_mechanisms_bit_equal(dem_pair):
 
 
 def test_slot_tables_bit_equal(circ):
-    H = TDec(circ["ct"], n_iters=2).H
+    H = TDec(circ["ct"], n_iters=2, device="cpu").H
     chk, var = np.nonzero(H)
     args = (chk.astype(np.int64), var.astype(np.int64)) + H.shape
     t0, t1 = jl.build_slot_tables(*args), tl.build_slot_tables(*args)
@@ -109,7 +109,7 @@ def test_slot_tables_bit_equal(circ):
 def test_sampler_signatures_match_reference_propagation(circ):
     """The sampler's site -> detector / observable matrices equal those the
     reference's host functions give for the same fault sites."""
-    s = tfs(circ["ct"], 8)
+    s = tfs(circ["ct"], 8, device="cpu")
     meas = jdem._propagate_faults(circ["cj"], s.faults)
     for row, rec in s.meas_flip_rows:
         meas[row, rec] ^= 1
@@ -124,7 +124,7 @@ def test_sampler_signatures_match_reference_propagation(circ):
 def test_sampler_rates_within_5_sigma(circ):
     shots = 20000
     ref = jfs(circ["cj"], shots)(jax.random.PRNGKey(3))
-    got = sample_circuit_fast(circ["ct"], shots, seed=3)
+    got = sample_circuit_fast(circ["ct"], shots, seed=3, device="cpu")
     assert got["detectors"].shape == (shots, circ["cj"].n_detectors)
     assert got["detectors"].dtype == np.uint8
     for key in ("detectors", "observables"):
@@ -140,7 +140,7 @@ def test_native_osd0_matches_python_and_leaves_native_dir(circ):
     native_dir = tnative.SOURCE.parent
     before = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
               for p in native_dir.iterdir() if p.is_file()}
-    dec = TDec(circ["ct"], n_iters=2)
+    dec = TDec(circ["ct"], n_iters=2, device="cpu")
     rng = np.random.default_rng(2)
     dets = circ["dets"][:64]
     beliefs = rng.normal(size=(64, dec.n_mech)).astype(np.float32)
@@ -159,7 +159,7 @@ def test_native_osd0_matches_python_and_leaves_native_dir(circ):
 def test_full_f32_fast_tier_matches_reference(circ):
     kw = dict(n_iters=25, fast_iters=6, retry_cap_divisor=4)
     dj = JDec(circ["cj"], fast_impl="xla", **kw)
-    dt = TDec(circ["ct"], **kw)
+    dt = TDec(circ["ct"], device="cpu", **kw)
     pj, bj, _ = (np.asarray(a) for a in
                  dj._full(jnp.asarray(circ["dets"], jnp.float32)))
     pt, bt, belt = dt._full(torch.tensor(circ["dets"]).float())
@@ -173,7 +173,8 @@ def test_fast_tier_tail_fits_retry_cap(circ):
     """The decoder is meant to run with every fast-tier failure inside the
     retry capacity; only then do torch.topk and jax top_k pick the same
     set regardless of tie order."""
-    dt = TDec(circ["ct"], n_iters=25, fast_iters=6, retry_cap_divisor=4)
+    dt = TDec(circ["ct"], n_iters=25, fast_iters=6, retry_cap_divisor=4,
+               device="cpu")
     dets = torch.tensor(circ["dets"]).float()
     est, _ = dt._bp_fast(dets)
     _, bad = dt.score(est, dets)
@@ -184,7 +185,7 @@ def test_fast_tier_tail_fits_retry_cap(circ):
 def test_full_bf16_fast_tier_statistics(circ):
     kw = dict(n_iters=25, fast_iters=6, retry_cap_divisor=4)
     dj = JDec(circ["cj"], fast_impl="xla", fast_dtype=jnp.bfloat16, **kw)
-    dt = TDec(circ["ct"], fast_dtype=torch.bfloat16, **kw)
+    dt = TDec(circ["ct"], fast_dtype=torch.bfloat16, device="cpu", **kw)
     pj, bj, _ = (np.asarray(a) for a in
                  dj._full(jnp.asarray(circ["dets"], jnp.float32)))
     pt, bt, _ = dt._full(torch.tensor(circ["dets"]).float())
@@ -197,7 +198,7 @@ def test_decoder_from_numpy_equals_circuit_decoder(circ):
     kw = dict(n_iters=25, fast_iters=6, retry_cap_divisor=4)
     dj = JDec(circ["cj"], fast_impl="xla", **kw)
     a = decoder_from_numpy(dj.H, dj.obs_mask, dj.probs, "cpu", **kw)
-    b = TDec(circ["ct"], **kw)
+    b = TDec(circ["ct"], device="cpu", **kw)
     np.testing.assert_array_equal(a.H, b.H)
     np.testing.assert_array_equal(a.obs_mask, b.obs_mask)
     dets = torch.tensor(circ["dets"][:256]).float()
@@ -208,7 +209,7 @@ def test_decoder_from_numpy_equals_circuit_decoder(circ):
 def test_run_bb_circuit_memory_within_reference_ci():
     kw = dict(rounds=2, p=8e-3, shots=1024, seed=0, n_iters=20)
     r0 = jl.run_bb_circuit_memory(**kw)
-    r1 = tl.run_bb_circuit_memory(**kw)
+    r1 = tl.run_bb_circuit_memory(**kw, device="cpu")
     assert r1["code"] == r0["code"] == "[[72,12]]"
     assert r1["n_mechanisms"] == r0["n_mechanisms"]
     lo, hi = wilson_ci(round(r0["p_logical_shot"] * 1024), 1024)

@@ -5,7 +5,8 @@ Tolerances: float64 1e-12 (same algorithm, same op order; only the matmul
 reduction order differs); float32 against the Pallas kernel in interpret
 mode 5e-4, the bound of the reference's own kernel test. The Pallas kernel
 needs rows % S == 0, so that comparison uses S = 4; the twin itself takes
-the bench's S = 5.
+the bench's S = 5. The CUDA kernel's 3xTF32 float32 numerics, emulated in
+plain torch, are held to 1e-4 of the float64 JAX reference after 300 steps.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,7 @@ from noisyquantumsimulator_tpu.solver.scan_pallas import (
     evolve_real_phased_many_pallas)
 from noisyquantumsimulator_tpu_torch.solver import real_rep as trr
 from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
-    _evolve_real_phased_many_plain, evolve_real_phased_many_cuda)
+    _evolve_real_phased_many_plain, _prologue, evolve_real_phased_many_cuda)
 
 torch.set_num_threads(1)
 
@@ -64,6 +65,91 @@ def test_single_schedule_matches_reference():
     ref = np.asarray(jrr.evolve_real_phased(*_j(U, cq, ph[0], x0), 9, 36))
     got = trr.evolve_real_phased(*_t(U, cq, ph[0], x0), 9, 36).numpy()
     assert np.abs(got - ref).max() <= 1e-12
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: add half an ulp of the 10-bit mantissa, clear the 13 low bits
+    (the kernel's rounding)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_sum(x):
+    """A tensor core's float32 result of an exact (float64) sum: rounded
+    toward zero (the 29 low mantissa bits cleared), as the tensor cores do
+    not round to nearest."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64).float()
+
+
+def _evolve_3xtf32(U, cq, ph, x0, D, P, running_sum_on_tc=False):
+    """Kernel K1's float32 numerics in plain torch. n is zero-padded to
+    KT k blocks of 8; U^T is split once, the state as it is loaded each
+    step (a = hi + lo, both TF32). For each 8-wide k block the three
+    products lo*hi, hi*lo, hi*hi go into a fresh tile on the tensor cores
+    (each product exact, each sum rounded as `_tc_sum`), and the tile is
+    added to the running sum with float32 adds, k block after k block, as
+    csrc/phase_scan.cu does. With `running_sum_on_tc` the tensor cores carry
+    the running sum instead (every product accumulates into it)."""
+    from noisyquantumsimulator_tpu_torch.solver.real_rep import _rotate
+    S, n = x0.shape
+    KT = -(-n // 8)
+    npad = 8 * KT
+    cq, ph, dphi, v = (t.float() for t in _prologue(U.float(), cq, ph, x0, D, P))
+    B = ph.shape[0]
+    UT = torch.zeros(npad, npad)
+    UT[:n, :n] = U.float().T
+    Uh = _tf32(UT)
+    Ul = _tf32(UT - Uh)
+    Uh, Ul = (u.double().view(KT, 8, npad) for u in (Uh, Ul))
+    v = torch.cat([v, torch.zeros(B, S, npad - n)], dim=2)
+    for k in range(ph.shape[1]):
+        v = torch.cat([_rotate(v[..., :n], dphi[:, k, None], cq, D, P),
+                       v[..., n:]], dim=2).reshape(B * S, npad)
+        vh = _tf32(v)
+        vl = _tf32(v - vh)
+        ah, al = (a.double().view(-1, KT, 8).transpose(0, 1) for a in (vh, vl))
+        terms = (torch.bmm(al, Uh), torch.bmm(ah, Ul), torch.bmm(ah, Uh))
+        acc = torch.zeros(B * S, npad)
+        if running_sum_on_tc:
+            for kb in range(KT):
+                for t in terms:
+                    acc = _tc_sum(t[kb] + acc.double())
+        else:
+            tile = _tc_sum(terms[0])
+            tile = _tc_sum(terms[1] + tile.double())
+            tile = _tc_sum(terms[2] + tile.double())
+            for kb in range(KT):
+                acc = acc + tile[kb]
+        v = acc.reshape(B, S, npad)
+    assert torch.equal(v[..., n:], torch.zeros_like(v[..., n:]))
+    return _rotate(v[..., :n], ph[:, -1, None], cq, D, P)
+
+
+def _split_error_300_steps(D, P, running_sum_on_tc=False):
+    """max |emulated kernel - JAX reference (float64)| / max |reference|
+    after the bench's 300 steps, B = 2 schedules of S = 5 rows."""
+    a = _shapes(D, P, B=2, S=5, n_seg=300, dtype=np.float64)
+    ref = np.asarray(jrr.evolve_real_phased_many(*_j(*a), D, P))
+    got = _evolve_3xtf32(*_t(*a), D, P, running_sum_on_tc).double().numpy()
+    assert got.shape == ref.shape == (2, 5, D + 2 * P)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("D,P", [(9, 36), (16, 120)])
+def test_3xtf32_split_holds_parity_over_300_steps(D, P):
+    """The split and the summation the kernel uses on the tensor cores keep
+    float32-level accuracy over the bench's 300 steps (the kernel is held
+    to 1e-4 of its twin on the card)."""
+    assert _split_error_300_steps(D, P) <= 1e-4
+    one_term = _tf32(torch.tensor([1.0 + 2.0 ** -12], dtype=torch.float32))
+    assert float(one_term) == 1.0       # what one TF32 product alone would drop
+
+
+def test_3xtf32_running_sum_on_the_tensor_cores_fails_parity():
+    """The same split with the tensor cores carrying the running sum drifts
+    past 1e-4 within 300 steps: the emulation sees the fault that the
+    kernel's fresh tile per k block avoids."""
+    assert _split_error_300_steps(9, 36, running_sum_on_tc=True) > 1e-4
 
 
 def test_wrapper_dispatch():
