@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main paths once on one GPU: the CZ gate
-engine and the BB-LDPC sample + BP decode path.
+engine, the BB-LDPC sample + BP decode path and the optimizer's forward path.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
+    python3 chip_smoke.py --only optimizer   (phases 1, 2, 9 and 10)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -11,7 +13,8 @@ each; any failure raises and the script exits non-zero:
 
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
-              ptxas registers and spills of K1 (no spills allowed)
+              ptxas registers and spills of K1 and K2 (no spills allowed);
+              the time of one empty kernel launch
   3. K1       the phase-scan kernel vs its plain twin at the bench layout
               (n = 81, S = 5, 300 steps, B = 1024; n = 256, B = 256), f32/f64
   4. K2       the masked-squaring kernel vs its twin on the main path's
@@ -35,6 +38,20 @@ each; any failure raises and the script exits non-zero:
               p_logical with its Wilson CI, K3's launch count in that run;
               the card's tiered decode vs the CPU twin path on 4096 shots;
               then K3's time vs its twin's
+  9. K2 batched  K2 vs its twin and torch.linalg.matrix_power at the shapes
+              where it does real work (K2_BATCHED: optimizer populations,
+              bang-bang segments, the per-segment engine at dim 3 and 4, the
+              64-bit tier), uniform and mixed squaring counts; per shape the
+              bound (the largest of operations, bytes and one empty launch)
+              and which binds; mixed s must cost less than uniform s = max
+ 10. optimizer  the population objectives of optimize/engine.py at P = 1024:
+              smooth JP (300 segments, float32 real core) and bang-bang (5
+              segments, complex64): evaluations/s, K2 launches per call, a
+              profiler window of 3 calls, 8 members against the complex128
+              per-segment path; the per-segment engine of one gate at dim 4
+              against the phase-frame route; then optimize_cz_gate("smooth_jp",
+              maxiter=10, popsize=15, grad_polish=False, seed=42): history
+              does not increase, final fidelity no lower than at x0
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -43,6 +60,7 @@ exits with code 2.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,9 +70,10 @@ import warnings
 import numpy as np
 
 SEED = 20261016
-# H100 SXM dense peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
-# cores, TF32 on them (a 3xTF32 product costs three), device memory.
+# H100 SXM dense peaks (NVIDIA's data sheet, 700 W): FP32 and FP64 outside the
+# tensor cores, TF32 on them (a 3xTF32 product costs three), device memory.
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 TRACE_DIR = "noisyquantumsimulator_tpu_torch/_build/traces"   # git-ignored
@@ -65,6 +84,21 @@ K2_REPLACES = "noisyquantumsimulator_tpu/ops/expm_pallas.py:35"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
+# K2 at the shapes where it does real work: (B, N, dtype, max_squarings,
+# squaring counts, who launches it). "mixed" draws s uniformly from 0..6.
+K2_BATCHED = (
+    (15, 81, "float32", 12, "3", "a default DE generation (popsize 15), real core"),
+    (1024, 81, "float32", 12, "3", "a card-sized population, real core"),
+    (1024, 81, "float32", 12, "mixed", "the same, members of different norms"),
+    (1024, 81, "float32", 12, "6", "the same, every member at the mixed maximum"),
+    (75, 81, "complex64", 12, "3", "bang-bang, 5 segments, P = 15"),
+    (5120, 81, "complex64", 12, "3", "bang-bang, 5 segments, P = 1024"),
+    (300, 81, "complex64", 4, "3", "per-segment engine of one gate, dim 3"),
+    (300, 256, "complex64", 4, "3", "per-segment engine of one gate, dim 4"),
+    (300, 256, "complex64", 12, "3", "the same under the default 12 trips"),
+    (64, 81, "complex128", 12, "mixed", "the 64-bit parity tier"),
+    (64, 81, "float64", 12, "mixed", "the 64-bit parity tier, real core"),
+)
 
 
 def say(phase: str, msg: str) -> None:
@@ -156,6 +190,18 @@ def phase_build():
         say("2 build", f"ptxas {name}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B")
         require(st == 0 and ld == 0, f"{name} spills")
+    k2 = [r for r in _kernels.ptxas_report() if "masked_square" in r[0]]
+    require(len(k2) == 12, f"ptxas report of the 12 K2 kernels, got {len(k2)}")
+    stack = _kernels.ptxas_stack_report()
+    for name, regs, st, ld in k2:
+        route = "resident" if "resident" in name else "tiled"
+        m = re.search(r"kernelI(.+?)EE?v", name)
+        elem = m.group(1) if m else name
+        say("2 build", f"ptxas K2 {route} <{elem}>: {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B, stack frame {stack.get(name)} B")
+    for name, _, st, ld in k2:
+        require(st == 0 and ld == 0 and stack.get(name) == 0,
+                f"{name} spills or keeps its register tiles on the stack")
 
 
 def phase_k1(rng):
@@ -232,6 +278,111 @@ def phase_k2():
     return errs
 
 
+def _empty_launch_ms():
+    """The time of one empty kernel launch (csrc/empty_launch.cu), from
+    2000 launches back to back between two CUDA events; best of 3."""
+    import torch
+    from noisyquantumsimulator_tpu_torch import _kernels
+    lib = _kernels.load()
+    stream = _kernels.stream_handle(torch.device("cuda", 0))
+
+    def run():
+        _kernels.check(lib, lib.nqs_empty_launch(stream), "empty launch")
+    run()
+    return min(_cuda_ms(run, 2000) for _ in range(3))
+
+
+def _k2_bound_ms(R, s, max_squarings, launch_ms):
+    """K2's bound for these inputs, the largest of three times: operations
+    (8 N^3 real FLOP per complex squaring, 2 N^3 per real one, for the
+    min(s[b], max_squarings) squarings each matrix needs, at the FP32 or
+    FP64 pipes' peak), bytes (R read once and written once) and one empty
+    kernel launch. Returns (ms, which, the three terms)."""
+    import torch
+    N = R.shape[-1]
+    per = 8.0 if R.dtype.is_complex else 2.0
+    peak = PEAK_FP32 if R.dtype in (torch.float32, torch.complex64) else PEAK_FP64
+    squarings = int(s.clamp(max=max_squarings).sum())
+    terms = {"operations": squarings * per * N ** 3 / peak * 1e3,
+             "bytes": 2.0 * R.numel() * R.element_size() / PEAK_BYTES * 1e3,
+             "launch": launch_ms}
+    which = max(terms, key=terms.get)
+    return terms[which], which, terms
+
+
+def phase_k2_batched(launch_ms):
+    """Phase 9: K2 against its plain twin and torch.linalg.matrix_power at
+    the batched shapes of K2_BATCHED, each with its bound: the largest of
+    operations, bytes and one empty launch (`launch_ms`). Returns the rows
+    by (B, N, dtype, max_squarings, s)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
+        _masked_squaring_plain, fused_masked_squaring)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    rows = {}
+    for B, N, dtname, ms, skind, who in K2_BATCHED:
+        dt = getattr(torch, dtname)
+        R = torch.randn((B, N, N), dtype=dt, device="cuda", generator=gen)
+        R = torch.eye(N, dtype=dt, device="cuda") + R * (0.05 / N ** 0.5)
+        if skind == "mixed":
+            s = torch.randint(0, 7, (B,), device="cuda", generator=gen,
+                              dtype=torch.int32)
+        else:
+            s = torch.full((B,), int(skind), device="cuda", dtype=torch.int32)
+        tol = 1e-5 if dtname in ("float32", "complex64") else 1e-12
+        before = fused_masked_squaring.launches
+        got = fused_masked_squaring(R, s, ms)
+        per_chain = fused_masked_squaring.launches - before
+        ref = _masked_squaring_plain(R, s, ms)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(got.shape == R.shape and got.dtype == dt, "K2 output shape")
+        require(bool(torch.isfinite(torch.view_as_real(got) if dt.is_complex
+                                    else got).all()), "K2 output finite")
+        require(err <= tol * scale, f"K2 ({B}, {N}) {dtname} s={skind}: "
+                f"{err:.3e} > {tol} * {scale:.3e}")
+        del got, ref
+        reps = 3 if B * N * N > 4e6 else 20
+        k_ms, p_ms = _kernel_vs_plain_ms(
+            lambda: fused_masked_squaring(R, s, ms),
+            lambda: _masked_squaring_plain(R, s, ms), reps)
+        lib_ms = None
+        if skind != "mixed":
+            power = 2 ** min(int(skind), ms)
+            lib_fn = lambda: torch.linalg.matrix_power(R, power)
+            lib_fn()
+            lib_ms = min(_cuda_ms(lib_fn, reps), _cuda_ms(lib_fn, reps))
+        bound, which, terms = _k2_bound_ms(R, s, ms, launch_ms)
+        rows[(B, N, dtname, ms, skind)] = dict(
+            ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, err=err, terms=terms,
+            binds=which)
+        lib_txt = "none (s differs per matrix)" if lib_ms is None else \
+            f"{lib_ms:.4f} ms ({lib_ms / k_ms:.2f}x K2's time)"
+        say("9 K2 batched", f"({B}, {N}) {dtname} max_squarings={ms} s={skind} "
+            f"[{who}]: max|kernel - twin| = {err:.3e} (max|ref| {scale:.3e}, tol "
+            f"{tol} relative); K2 {k_ms:.4f} ms in {per_chain} launch(es), plain "
+            f"twin {p_ms:.4f} ms, matrix_power {lib_txt}; bound {bound:.5f} ms "
+            f"({which}; operations {terms['operations']:.5f}, bytes "
+            f"{terms['bytes']:.5f}, launch {terms['launch']:.5f}) -> "
+            f"{bound / k_ms * 100:.1f}% of the bound")
+        del R, s
+        torch.cuda.empty_cache()
+    mixed = rows[(1024, 81, "float32", 12, "mixed")]["ms"]
+    full = rows[(1024, 81, "float32", 12, "6")]["ms"]
+    say("9 K2 batched", f"(1024, 81) float32: mixed s in 0..6 {mixed:.4f} ms "
+        f"against uniform s = 6 {full:.4f} ms")
+    require(mixed < full, "masked trips cost less than squarings")
+    t12 = rows[(300, 256, "complex64", 12, "3")]["ms"]
+    t4 = rows[(300, 256, "complex64", 4, "3")]["ms"]
+    say("9 K2 batched", f"(300, 256) complex64, s = 3: 12 trips {t12:.4f} ms "
+        f"against 4 trips {t4:.4f} ms (the tiled route's masked trips return "
+        "before any load)")
+    require(t12 < 1.15 * t4, "masked trips of the tiled route move no matrix")
+    return rows
+
+
 def _host_reference_states(plan):
     """Host complex128 phase-frame result (scipy expm + ordered product),
     the same algorithm as the reference bench's x64 tier."""
@@ -286,23 +437,25 @@ def phase_gate():
     return out
 
 
-def _profile_steps(step, scales, dim, n_steps=3):
-    """torch.profiler over `n_steps` sweep steps: wall ms per step, the
-    device's idle share within the kernels' span (1 - union of kernel,
-    memcpy and memset intervals / span) and K1's share of device time."""
+def _profile_window(fn, tag, n_calls=3):
+    """torch.profiler over `n_calls` calls of fn after one warm-up call.
+    Returns (wall seconds per call, the device's idle share within the
+    kernels' span = 1 - union of kernel, memcpy and memset intervals / span,
+    {kernel name: device microseconds}, trace path); the idle share and the
+    dict are None when the trace holds no device events."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
-    step(scales)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n_steps):
-            step(scales)
+        for _ in range(n_calls):
+            fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n_steps
+        wall = (time.perf_counter() - t0) / n_calls
     os.makedirs(TRACE_DIR, exist_ok=True)
-    path = os.path.join(TRACE_DIR, f"sweep_dim{dim}_trace.json")
+    path = os.path.join(TRACE_DIR, f"{tag}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         evs = json.load(f)
@@ -314,12 +467,31 @@ def _profile_steps(step, scales, dim, n_steps=3):
     if not dev:
         return wall, None, None, path
     busy, end = 0.0, dev[0][0]
-    for a, b, _ in dev:
+    by_name = {}
+    for a, b, name in dev:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
     span = end - dev[0][0]
-    k1 = sum(b - a for a, b, name in dev if "phase_scan" in name)
-    return wall, 1.0 - busy / span, k1 / busy, path
+    return wall, 1.0 - busy / span, by_name, path
+
+
+def _share(by_name, *needles):
+    """Share of the device time of `by_name` spent in kernels whose name
+    holds one of `needles` (lower case)."""
+    total = sum(by_name.values())
+    return sum(t for name, t in by_name.items()
+               if any(n in name.lower() for n in needles)) / total
+
+
+def _profile_steps(step, scales, dim, n_steps=3):
+    """torch.profiler over `n_steps` sweep steps: wall s per step, the
+    device's idle share and K1's share of device time."""
+    wall, idle, by_name, path = _profile_window(
+        lambda: step(scales), f"sweep_dim{dim}", n_steps)
+    if idle is None:
+        return wall, None, None, path
+    return wall, idle, _share(by_name, "phase_scan"), path
 
 
 def _k1_bounds_ms(B, S, n, n_seg):
@@ -332,7 +504,7 @@ def _k1_bounds_ms(B, S, n, n_seg):
             nbytes / PEAK_BYTES * 1e3)
 
 
-def phase_sweep(F_c64, errs_k2):
+def phase_sweep(F_c64, errs_k2, launch_ms):
     import torch
     from noisyquantumsimulator_tpu_torch import bench_gate
     from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
@@ -456,11 +628,9 @@ def phase_sweep(F_c64, errs_k2):
         timing[("K2", dim)] = (k_ms, p_ms)
         s_data = int(s.clamp(max=ms).sum())          # squarings this data needs
         N = R.shape[-1]
-        k2_ops = s_data * 8.0 * N ** 3
-        k2_bytes = 2.0 * R.numel() * R.element_size()
-        bounds[("K2", dim)] = (max(k2_ops / PEAK_FP32, k2_bytes / PEAK_BYTES) * 1e3,
-                               "operations" if k2_ops / PEAK_FP32 >= k2_bytes / PEAK_BYTES
-                               else "bytes")
+        _, binds, terms = _k2_bound_ms(R, s, ms, launch_ms)
+        by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
+        bounds[("K2", dim)] = (terms[by], by, binds)
         power = 2 ** int(s[0].clamp(max=ms))
         lib_fn = lambda: torch.linalg.matrix_power(R, power)
         lib_fn()
@@ -471,7 +641,9 @@ def phase_sweep(F_c64, errs_k2):
             f"squarings, complex64): kernel {k_ms:.4f} ms, plain twin "
             f"{p_ms:.4f} ms, torch.linalg.matrix_power(R, {power}) {lib_ms:.4f} "
             f"ms (max|diff| {lib_err:.3e}); bound {bounds[('K2', dim)][0]:.6f} ms "
-            f"({bounds[('K2', dim)][1]})")
+            f"({bounds[('K2', dim)][1]}); one empty launch takes "
+            f"{launch_ms:.6f} ms, so of operations, bytes and launch the "
+            f"{binds} binds")
 
     k1_note = ("no single PyTorch call computes the rotated 300-step scan; "
                "300 x torch.mm of the per-step product is printed as context")
@@ -493,6 +665,7 @@ def phase_sweep(F_c64, errs_k2):
          "bound_ms": bounds[("K2", 3)][0], "bound_by": bounds[("K2", 3)][1],
          "library_ms": library[("K2", 3)],
          "library_call": "torch.linalg.matrix_power(R, 2**s)",
+         "empty_launch_ms": launch_ms, "binds": bounds[("K2", 3)][2],
          "shape": "dim 3: B=1 N=81 complex64"})
     return kernels
 
@@ -657,7 +830,245 @@ def phase_bb(errs_k3):
             "shape": "w_max=26 n_chk=288 S=65536 bf16"}
 
 
-def main() -> int:
+# substrings of the names of cuBLAS / CUTLASS product kernels in a trace
+_GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas")
+
+
+def _population_near(x0, bounds, P, spread, rng):
+    """P members: x0 itself, then x0 scaled coordinate-wise by factors in
+    1 +- spread, clipped to the bounds."""
+    b = np.asarray(bounds, float)
+    pop = x0[None] * (1.0 + spread * rng.uniform(-1.0, 1.0, (P, len(x0))))
+    pop[0] = x0
+    return np.clip(pop, b[:, 0], b[:, 1])
+
+
+def _drive_population(tag, obj, pop, what):
+    """Warm-up, then 5 timed calls of a population objective with K2's
+    count set to 0 just before and read just after; then a profiler window
+    of 3 calls (not counted). Returns (costs, metrics, K2 launches of the 5
+    calls, evaluations/s)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    P = len(pop)
+    pop_dev = torch.as_tensor(pop, device="cuda")
+    obj(pop_dev)
+    torch.cuda.synchronize()
+    fused_masked_squaring.launches = 0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cost, metrics = obj(pop_dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = fused_masked_squaring.launches
+    med = statistics.median(times)
+    require(launches > 0, f"K2 launched by the {what} objective")
+    require(cost.shape == (P,) and bool(torch.isfinite(cost).all()),
+            f"{what}: one finite cost per member")
+    say("10 optimizer", f"{what}, P = {P}: median {med * 1e3:.3f} ms of 5 calls "
+        f"-> {P / med:.1f} evaluations/s (times ms "
+        f"{[round(t * 1e3, 3) for t in times]}); K2 launches per call "
+        f"{launches / 5:g}; best cost {float(cost.min()):.4f}, members below the "
+        f"1e6 floor {int((cost < 1e6).sum())}")
+    wall, idle, by_name, path = _profile_window(lambda: obj(pop_dev), tag)
+    if idle is None:
+        say("10 optimizer", f"{what} profiler window: no device events in "
+            f"{path}; idle share not measured")
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        say("10 optimizer", f"{what} profiler window, 3 calls: wall "
+            f"{wall * 1e3:.3f} ms/call, device idle share {idle:.4f}; of device "
+            f"time K2 {_share(by_name, 'masked_square') * 100:.2f}%, cuBLAS "
+            f"products (bmm of the scan or the ordered product, Taylor-16) "
+            f"{_share(by_name, *_GEMM_NAMES) * 100:.2f}%; {len(by_name)} kernels, "
+            f"longest: " + "; ".join(f"{n[:60]} {t / sum(by_name.values()) * 100:.1f}%"
+                                     for n, t in top) + f" (trace {path})")
+    return cost, metrics, launches, P / med
+
+
+def _hold_to_c128(what, problem, key, kw, pop8, cost, metrics, obj64, tol_f):
+    """The first members' costs and fidelities against the complex128
+    per-segment path (one expm per member and segment, evolve_rhos): the
+    fidelities within `tol_f` absolute and the cost within 5e-3 relative at
+    32 bits (the cost multiplies an error of a fidelity by up to
+    2e5 (1 - F)), and the same objective at 64 bits within 1e-6 relative.
+    Also prints the squaring counts of the per-segment expm at 32 bits: each
+    squaring doubles the relative error of the chain."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm import _THETA16, _scale
+    from noisyquantumsimulator_tpu_torch.optimize import engine
+    from noisyquantumsimulator_tpu_torch.solver.propagator import (
+        segment_liouvillians)
+    c128 = torch.complex128
+    put = lambda a: torch.as_tensor(np.asarray(a), device="cuda").to(c128)
+    sched = engine.SCHEDULE_BUILDERS[key](
+        torch.as_tensor(pop8, device="cuda"), problem, **kw)
+    with torch.no_grad():
+        ref_c, ref_m = engine._evaluate_arrays(
+            sched, put(problem.L0_bare), put(problem.Cd), put(problem.Cp),
+            put(problem.Cm), put(problem.rho0s),
+            {k: put(v) for k, v in problem.kets.items()})
+        s32 = _scale(segment_liouvillians(
+            put(problem.L0_bare), put(problem.Cp), put(problem.Cm), sched,
+            put(problem.Cd)), _THETA16, 12)[1]
+    c64, m64 = obj64(pop8)
+    n = len(pop8)
+    rel32 = float(((cost[:n].double() - ref_c).abs() / ref_c).max())
+    rel64 = float(((c64 - ref_c).abs() / ref_c).max())
+    dF = max(float((metrics[k][:n].double() - ref_m[k]).abs().max())
+             for k in ("avg_fidelity", "f00", "f01", "f10", "f11",
+                       "cz_phase_fidelity"))
+    say("10 optimizer", f"{what}: {n} members against the complex128 per-segment "
+        f"path (Taylor-16 squarings of its segments {int(s32.min())}.."
+        f"{int(s32.max())}): max|dF| over the six fidelities {dF:.3e} (tol "
+        f"{tol_f:g}), cost "
+        f"relative {rel32:.3e} (tol 5e-3); the same objective at 64 bits: cost "
+        f"relative {rel64:.3e} (tol 1e-6); reference costs "
+        f"{[round(float(c), 3) for c in ref_c]}")
+    require(dF <= tol_f, f"{what}: fidelities within {tol_f:g} of complex128")
+    require(rel32 <= 5e-3, f"{what}: 32-bit cost within 5e-3 relative")
+    require(rel64 <= 1e-6, f"{what}: 64-bit cost within 1e-6 relative")
+
+
+def phase_optimizer():
+    """Phase 10: the optimizer's forward path. Returns K2's launches on it,
+    by the shape it was launched at."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.gate.simulate import (
+        plan_squaring_bound, run_plan)
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    from noisyquantumsimulator_tpu_torch.solver.propagator import evolve_rhos
+
+    P = 1024
+    rng = np.random.default_rng(SEED + 10)
+    app = ApparatusConstraints()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        problem = engine.build_fixed_problem(app, app.make_full_noise())
+    say("10 optimizer", f"default apparatus, full noise, 3-level atoms: host plan "
+        f"{time.perf_counter() - t0:.2f} s; V/Omega = {problem.V_over_Omega:.1f}, "
+        f"phase-frame generator {'found' if problem.g is not None else 'absent'}")
+    require(problem.g is not None, "the default apparatus is phase-frame eligible")
+    launches = {}
+
+    # --- smooth JP, 300 segments, the float32 real core: one expm a member
+    bounds, x0 = forward.get_smooth_jp_bounds_and_x0()
+    pop = _population_near(x0, bounds, P, 0.1, rng)
+    obj = engine.make_population_objective(problem, "smooth_jp")
+    obj64 = engine.make_population_objective(problem, "smooth_jp",
+                                             dtype=torch.complex128)
+    cost, metrics, launches["smooth_jp"], rate_sj = _drive_population(
+        "optimizer_smooth_jp", obj, pop, "smooth_jp (300 segments, float32 real core)")
+    require(launches["smooth_jp"] == 5, "smooth_jp: one K2 launch per call")
+    _hold_to_c128("smooth_jp", problem, "smooth_jp", {}, pop[:8], cost, metrics, obj64,
+                  1e-4)
+
+    # --- bang-bang, 5 segments, complex64: one expm a member and segment
+    bounds, x0 = forward.get_jp_bangbang_bounds_and_x0(5)
+    pop = _population_near(x0, bounds, P, 0.02, rng)
+    kw = dict(n_segments=5)
+    obj = engine.make_population_objective(problem, "jp_bangbang", **kw)
+    obj64 = engine.make_population_objective(problem, "jp_bangbang",
+                                             dtype=torch.complex128, **kw)
+    cost, metrics, launches["jp_bangbang"], rate_bb = _drive_population(
+        "optimizer_bangbang", obj, pop, "jp_bangbang (5 segments, complex64)")
+    require(launches["jp_bangbang"] == 5, "jp_bangbang: one K2 launch per call")
+    # a bang-bang segment is a fifth of the gate: its expm needs about 10
+    # squarings where a smooth-JP step needs 3, hence the wider tolerance
+    _hold_to_c128("jp_bangbang", problem, "jandura_pupillo", kw, pop[:8], cost,
+                  metrics, obj64, 5e-4)
+    del obj, obj64, cost, metrics
+    torch.cuda.empty_cache()
+
+    # --- the per-segment engine of one gate at dim 4 (300 x 256 x 256
+    # complex64) against the phase-frame route of the same plan
+    plan = _plan(4)
+    plan.device, plan.dtype = "cuda", torch.complex64
+    put = lambda a: torch.as_tensor(np.asarray(a), device="cuda").to(torch.complex64)
+    ms = plan_squaring_bound(plan)
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    rhos = evolve_rhos(put(plan.L0), put(plan.Cp), put(plan.Cm), plan.schedule,
+                       put(plan.rho0s), max_squarings=ms)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["per_segment_dim4"] = fused_masked_squaring.launches
+    ref = run_plan(plan)[3]
+    err = float((rhos - ref).abs().max())
+    say("10 optimizer", f"per-segment engine, dim 4, 300 segments, complex64: "
+        f"{wall * 1e3:.1f} ms (first call), K2 launches "
+        f"{launches['per_segment_dim4']} (max_squarings {ms}); max|rho - rho of "
+        f"the phase-frame route| = {err:.3e} (tol 1e-4)")
+    require(launches["per_segment_dim4"] == ms, "per-segment dim 4: one K2 launch a trip")
+    require(err <= 1e-4, "per-segment and phase-frame routes agree at dim 4")
+    del rhos, ref
+    torch.cuda.empty_cache()
+
+    # --- the entry point: a short differential evolution
+    x0_sj = forward.get_smooth_jp_bounds_and_x0()[1]
+    F0 = float(engine.make_objective(problem, "smooth_jp")(x0_sj)[1]["avg_fidelity"])
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res = forward.optimize_cz_gate("smooth_jp", maxiter=10, popsize=15,
+                                       grad_polish=False, seed=42)
+    wall = time.perf_counter() - t0
+    launches["optimize_cz_gate"] = fused_masked_squaring.launches
+    hist = np.asarray(res.history)
+    F1 = res.best_metrics["avg_fidelity"]
+    say("10 optimizer", f"optimize_cz_gate('smooth_jp', maxiter=10, popsize=15, "
+        f"grad_polish=False, seed=42): {wall:.2f} s, {res.n_evaluations} "
+        f"evaluations, K2 launches {launches['optimize_cz_gate']}; best cost per "
+        f"generation {[round(float(h), 4) for h in hist]}; F = {F1:.6f} (at x0 "
+        f"{F0:.6f})")
+    require(len(hist) == 10 and bool(np.all(np.diff(hist) <= 0.0)),
+            "DE history does not increase")
+    require(launches["optimize_cz_gate"] == 12,
+            "one K2 launch per generation, the start and the final metrics")
+    require(np.isfinite(F1) and F1 >= F0 - 1e-6,
+            f"final fidelity {F1} no lower than at x0 {F0}")
+    return launches, {"smooth_jp": rate_sj, "jp_bangbang": rate_bb}
+
+
+def _k2_entries(rows, launches):
+    """K2's records at its batched shapes for the kernels line: phase 9's
+    measurements beside the launches of phase 10's runs."""
+    out = []
+    for key, run, shape in (
+            ((1024, 81, "float32", 12, "3"), "smooth_jp",
+             "B=1024 N=81 float32, 12 trips, s=3 (resident route)"),
+            ((5120, 81, "complex64", 12, "3"), "jp_bangbang",
+             "B=5120 N=81 complex64, 12 trips, s=3 (resident route)"),
+            ((300, 256, "complex64", 4, "3"), "per_segment_dim4",
+             "B=300 N=256 complex64, 4 trips, s=3 (tiled route)")):
+        r = rows[key]
+        by = ("operations" if r["terms"]["operations"] >= r["terms"]["bytes"]
+              else "bytes")
+        out.append({"name": f"K2 masked_squaring {key[:3]}", "route": "cuda",
+                    "source": K2_SOURCE, "replaces": K2_REPLACES,
+                    "launches": launches[run], "max_abs_err": r["err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["terms"][by], "bound_by": by,
+                    "library_ms": r["library_ms"],
+                    "library_call": "torch.linalg.matrix_power(R, 2**s)",
+                    "empty_launch_ms": r["terms"]["launch"], "binds": r["binds"],
+                    "launched_by": run, "shape": shape})
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("k2", "optimizer"),
+                    help="run phases 1, 2 and 9 (k2) or 1, 2, 9 and 10 "
+                         "(optimizer) only, and print no result line")
+    args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
         print("[1 device] FAIL: torch.cuda.is_available() is False; this "
@@ -665,12 +1076,23 @@ def main() -> int:
         return 2
     name, count = dev
     phase_build()
+    launch_ms = _empty_launch_ms()
+    say("2 build", f"one empty kernel launch: {launch_ms * 1e3:.3f} us (2000 "
+        "back to back, best of 3): no kernel's bound is below it")
+    if args.only:
+        phase_k2_batched(launch_ms)
+        if args.only == "optimizer":
+            phase_optimizer()
+        return 0
     phase_k1(np.random.default_rng(SEED))
     errs_k2 = phase_k2()
     F = phase_gate()
-    kernels = phase_sweep(F["torch.complex64"], errs_k2)
+    kernels = phase_sweep(F["torch.complex64"], errs_k2, launch_ms)
     errs_k3 = phase_k3()
     kernels.append(phase_bb(errs_k3))
+    rows = phase_k2_batched(launch_ms)
+    launches, _ = phase_optimizer()
+    kernels.extend(_k2_entries(rows, launches))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -51,10 +51,12 @@ _SIGNATURES = {
     "nqs_bp_c2v_max_slots": (),
     "nqs_phase_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_phase_scan_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "nqs_masked_squaring_f32": (_P, _P, _P, _I, _I, _I, _P),
-    "nqs_masked_squaring_f64": (_P, _P, _P, _I, _I, _I, _P),
-    "nqs_masked_squaring_c64": (_P, _P, _P, _I, _I, _I, _P),
-    "nqs_masked_squaring_c128": (_P, _P, _P, _I, _I, _I, _P),
+    "nqs_masked_squaring_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nqs_masked_squaring_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nqs_masked_squaring_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nqs_masked_squaring_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "nqs_masked_squaring_is_resident": (_I, _I),
+    "nqs_empty_launch": (_P,),
 }
 
 _lock = threading.Lock()
@@ -188,6 +190,24 @@ def ptxas_report(lib: Path | None = None) -> list:
     return out
 
 
+def ptxas_stack_report(lib: Path | None = None) -> dict:
+    """{kernel: bytes of stack frame} for every kernel of the library `lib`
+    (default: the package's), read from its build log. A kernel whose local
+    arrays stayed in registers has 0."""
+    log = log_path(lib if lib is not None else library_path())
+    if not log.exists():
+        return {}
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name] = int(m.group(1))
+    return out
+
+
 def check(lib, rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
@@ -207,4 +227,4 @@ def ptr(t) -> ctypes.c_void_p:
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
            "library_path", "log_path", "open_library", "build_info",
-           "ptxas_report", "stream_handle", "ptr"]
+           "ptxas_report", "ptxas_stack_report", "stream_handle", "ptr"]

@@ -9,6 +9,12 @@ need different squaring counts runs as one fixed-shape computation.
 the hand-written kernel (`csrc/masked_squaring.cu`), a CPU tensor runs the
 plain twin `_masked_squaring_plain`. Any other device raises; nothing falls
 back from the kernel to the twin.
+
+The kernel has two routes, chosen by its launcher from N and the dtype: a
+matrix pair that fits in one block's shared memory (N = 81 at every dtype)
+runs its whole chain in ONE launch; larger matrices (N = 256) take one
+launch per trip through tiles, with two scratch buffers. Either way a trip
+past s[b] moves no byte of matrix b.
 """
 from __future__ import annotations
 
@@ -16,11 +22,12 @@ import torch
 
 from .. import _kernels
 
+# dtype -> (C entry point, type code of nqs_masked_squaring_is_resident)
 _ENTRY = {
-    torch.float32: "nqs_masked_squaring_f32",
-    torch.float64: "nqs_masked_squaring_f64",
-    torch.complex64: "nqs_masked_squaring_c64",
-    torch.complex128: "nqs_masked_squaring_c128",
+    torch.float32: ("nqs_masked_squaring_f32", 0),
+    torch.float64: ("nqs_masked_squaring_f64", 1),
+    torch.complex64: ("nqs_masked_squaring_c64", 2),
+    torch.complex128: ("nqs_masked_squaring_c128", 3),
 }
 
 
@@ -38,7 +45,8 @@ def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
     """R (B, N, N) float32/float64/complex64/complex128, s (B,) int ->
     R[b]^(2^min(s[b], max_squarings)), batch-element-wise.
 
-    CUDA tensors: kernel K2, one launch per trip (counted in
+    CUDA tensors: kernel K2, one launch per chain on its resident route and
+    one per trip on its tiled route (counted in
     `fused_masked_squaring.launches`). CPU tensors: the plain twin."""
     if R.ndim != 3 or R.shape[-1] != R.shape[-2]:
         raise ValueError(f"R must be (B, N, N), got {tuple(R.shape)}")
@@ -56,16 +64,24 @@ def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
     if B == 0 or max_squarings <= 0:
         return R.clone()
     lib = _kernels.load()
-    buf0 = R.contiguous().clone()
-    buf1 = torch.empty_like(buf0)
+    entry, code = _ENTRY[R.dtype]
+    src = R.contiguous()
+    out = torch.empty_like(src)
     s32 = s.to(torch.int32).contiguous()
     with torch.cuda.device(R.device):
-        rc = getattr(lib, _ENTRY[R.dtype])(
-            _kernels.ptr(buf0), _kernels.ptr(buf1), _kernels.ptr(s32),
-            int(max_squarings), B, N, _kernels.stream_handle(R.device))
+        resident = bool(lib.nqs_masked_squaring_is_resident(code, N))
+        # the tiled route ping-pongs between two scratch buffers; trip 0 reads
+        # R itself and a matrix's last squaring writes `out`
+        scratch = [None if resident or max_squarings < need
+                   else torch.empty_like(src) for need in (2, 3)]
+        rc = getattr(lib, entry)(
+            _kernels.ptr(src), _kernels.ptr(out),
+            *(None if t is None else _kernels.ptr(t) for t in scratch),
+            _kernels.ptr(s32), int(max_squarings), B, N,
+            _kernels.stream_handle(R.device))
         _kernels.check(lib, rc, "masked squaring kernel")
-    fused_masked_squaring.launches += int(max_squarings)
-    return buf1 if max_squarings % 2 else buf0
+    fused_masked_squaring.launches += 1 if resident else int(max_squarings)
+    return out
 
 
 fused_masked_squaring.launches = 0

@@ -1,0 +1,7 @@
+from .apparatus import ApparatusConstraints, OptimizationResult, SimulationCache  # noqa: F401
+from .cost import compute_cost, compute_cost_arrays, extract_metrics  # noqa: F401
+from .de import differential_evolution  # noqa: F401
+from .engine import (build_fixed_problem, make_objective,  # noqa: F401
+                     make_population_objective, problem_from_numpy)
+from .forward import optimize_cz_gate, run_baseline  # noqa: F401
+from .sweeps import hardware_sweep, protocol_sweep, standard_research_sweeps  # noqa: F401

@@ -265,6 +265,26 @@ def compute_phase_shift_xi(Delta, Omega, tau):
     return num / den
 
 
+def compute_phase_shift_xi_torch(Delta, Omega, tau):
+    """Tensor twin of compute_phase_shift_xi for on-device optimizers:
+    Delta and tau are real tensors of any (broadcastable) shape, e.g. one
+    entry per population member; Omega a float or a tensor. Returns the
+    complex tensor e^{i xi}, with the same guards as the host version."""
+    import torch
+    Delta = torch.as_tensor(Delta)
+    absO = torch.as_tensor(Omega, dtype=Delta.dtype, device=Delta.device).abs()
+    y = Delta / torch.clamp(absO, min=1e-30)
+    s = absO * tau
+    a = torch.sqrt(y ** 2 + 1.0)
+    b = s * a / 2.0
+    num = torch.complex(a * torch.cos(b), y * torch.sin(b))
+    den = torch.complex(-a * torch.cos(b), y * torch.sin(b))
+    small = den.abs() < 1e-12
+    one = torch.ones_like(num)
+    xi = torch.where(small, one, num / torch.where(small, one, den))
+    return torch.where(absO < 1e-10, one, xi)
+
+
 __all__ = [
     "LP_OMEGA_TAU_DEFAULT", "LP_DELTA_OVER_OMEGA_DEFAULT", "LP_XI_DEFAULT",
     "LP_PARAMS_BY_V_OMEGA", "JP_SWITCHING_TIMES_VALIDATED",
@@ -275,4 +295,5 @@ __all__ = [
     "LP_DEFAULT", "JP_DEFAULT", "JP_7SEG",
     "get_protocol_params", "get_adaptive_protocol_params",
     "get_lp_protocol", "get_jp_protocol", "compute_phase_shift_xi",
+    "compute_phase_shift_xi_torch",
 ]

@@ -13,8 +13,11 @@ For uniform-(amp, dt) schedules the phase-frame identity
 (ops/phase_frame.py) replaces step 3-4 by one expm (`uniform_base_propagator`)
 and a scan of shared-weight matvecs (`evolve_rhos_phased*`).
 
-Operator tensors (L0, C+, C-, rho0s, U) carry their device and dtype; the
-schedule is host data (numpy) and is moved to the operators' device here.
+Operator tensors (L0, C+, C-, rho0s, U) carry their device and dtype. A
+schedule is host data (numpy), moved to the operators' device here, or
+tensors already there; its arrays may carry a leading population axis
+(P, n), and L0 one too, so a population of schedules is ONE batched expm
+over (P * n, D^2, D^2) and one ordered product.
 """
 from __future__ import annotations
 
@@ -27,12 +30,13 @@ from ..ops.expm import chained_product, expm
 
 
 class Schedule(NamedTuple):
-    """Pure-array pulse schedule (host numpy).
+    """Pure-array pulse schedule: host numpy, or tensors on the operators'
+    device. Every array is (n,), or (P, n) for a population of schedules.
 
-    amps   : (n,) drive amplitude scale per segment (1.0 = full Omega)
-    phases : (n,) drive phase per segment [rad]
-    dts    : (n,) segment durations [s]
-    dets   : (n,) or None — extra per-segment detuning [rad/s] applied via
+    amps   : drive amplitude scale per segment (1.0 = full Omega)
+    phases : drive phase per segment [rad]
+    dts    : segment durations [s]
+    dets   : or None — extra per-segment detuning [rad/s] applied via
              the Cd channel
     """
     amps: np.ndarray
@@ -54,34 +58,39 @@ def _host(x, like: torch.Tensor) -> torch.Tensor:
 
 
 def segment_liouvillians(L0, Cp, Cm, schedule: Schedule, Cd=None):
-    """Stack of per-segment Liouvillian*dt matrices, shape (n, D^2, D^2)."""
-    a = _host(schedule.amps, L0)
-    ph = _host(schedule.phases, L0)
-    dt = _host(schedule.dts, L0)
-    ep = (a * torch.exp(1j * ph)).to(L0.dtype)
-    Ls = (L0[None] + ep[:, None, None] * Cp[None]
-          + ep.conj()[:, None, None] * Cm[None])
+    """Stack of per-segment Liouvillian*dt matrices, shape (n, D^2, D^2);
+    (P, n, D^2, D^2) for a population of schedules (arrays (P, n)), where
+    L0 may be (P, D^2, D^2), one per member."""
+    a = _host(schedule.amps, Cp)
+    ph = _host(schedule.phases, Cp)
+    dt = _host(schedule.dts, Cp)
+    ep = (a * torch.exp(1j * ph)).to(Cp.dtype)
+    Ls = (L0.unsqueeze(-3) + ep[..., None, None] * Cp
+          + ep.conj()[..., None, None] * Cm)
     if schedule.dets is not None and Cd is not None:
-        Ls = Ls + _host(schedule.dets, L0)[:, None, None] * Cd[None]
-    return Ls * dt[:, None, None]
+        Ls = Ls + _host(schedule.dets, Cp)[..., None, None] * Cd
+    return Ls * dt[..., None, None]
 
 
 def total_propagator(L0, Cp, Cm, schedule: Schedule, Cd=None,
                      max_squarings: int = 12, expm_method: str = "auto"):
-    """exp(L_n dt_n) ... exp(L_1 dt_1) as one (D^2, D^2) matrix."""
+    """exp(L_n dt_n) ... exp(L_1 dt_1) as one (D^2, D^2) matrix, or
+    (P, D^2, D^2) for a population of schedules."""
     A = segment_liouvillians(L0, Cp, Cm, schedule, Cd)
-    return chained_product(expm(A, max_squarings=max_squarings,
-                                method=expm_method))
+    U = expm(A, max_squarings=max_squarings, method=expm_method)
+    return chained_product(U.movedim(-3, 0))
 
 
 def evolve_rhos(L0, Cp, Cm, schedule: Schedule, rho0s, Cd=None,
                 max_squarings: int = 12, expm_method: str = "auto"):
     """Evolve a batch of density matrices through the schedule.
-    rho0s: (B, D, D) -> (B, D, D)."""
+    rho0s: (B, D, D) -> (B, D, D); (P, B, D, D) for a population of
+    schedules, every member from the same rho0s."""
     B, D, _ = rho0s.shape
     U = total_propagator(L0, Cp, Cm, schedule, Cd,
                          max_squarings=max_squarings, expm_method=expm_method)
-    return (rho0s.reshape(B, D * D) @ U.T).reshape(B, D, D)
+    out = rho0s.reshape(B, D * D) @ U.transpose(-1, -2)
+    return out.reshape(*U.shape[:-2], B, D, D)
 
 
 # --------------------------------------------------------------------------

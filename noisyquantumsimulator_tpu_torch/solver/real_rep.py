@@ -71,6 +71,16 @@ def build_real_rep(g: np.ndarray, D: int) -> RealRep:
                    cq, D, P)
 
 
+def real_propagator_host(U: np.ndarray, rep: RealRep) -> np.ndarray:
+    """U_real = Re(W U W^dagger) (host, float64). The imaginary part is
+    zero for any Hermiticity-preserving map; asserted to rounding."""
+    W = rep.Wr + 1j * rep.Wi
+    M = W @ np.asarray(U, np.complex128) @ W.conj().T
+    assert float(np.max(np.abs(M.imag))) < 1e-9 * max(
+        1.0, float(np.max(np.abs(M.real))))
+    return np.ascontiguousarray(M.real)
+
+
 def real_propagator_device(U_base, Wr, Wi):
     """U_real = Re(W U_base W^dagger) on U_base's device from a complex
     U_base, via real-plane matmuls (once per call)."""
@@ -122,13 +132,63 @@ def evolve_real_phased_many(U_real, cq, phases_bn, x0s, D: int, P: int):
     return evolve_real_phased_many_cuda(U_real, cq, phases_bn, x0s, D, P)
 
 
+def _evolve_real_phased_population(U_real, cq, phases, x0s, D: int, P: int):
+    """The scan for a population with one propagator and one schedule per
+    member: U_real (M, n, n), phases (M, n_seg), x0s (S, n) shared or
+    (M, S, n); returns (M, S, n). This is what mapping the single-schedule
+    scan over a population gives; kernel K1 does not apply, it shares one
+    U^T over all rows.
+
+    A step is two launches, one product with the step's factors and one
+    torch.bmm. The pair rotation is linear in the coordinates,
+    rot(v) = v * C + v[swap] * Sg with C = (1, cos, cos), Sg = (0, -sin, sin)
+    and swap exchanging each pair's re and im, so
+
+        rot(v) @ U^T = [v * C | v * Sg[swap]] @ [U^T ; U^T[swap]]
+
+    with the two halves side by side along the contraction axis (2n long).
+    The first rotation (by -phi_0) is folded into step 0, whose own angle is
+    zero; the factors of every step are made in one call. The scan is bound
+    by the host's launches and by reading each member's U^T once a step,
+    not by the doubled arithmetic."""
+    M, n_seg = phases.shape
+    rdt, dev = U_real.dtype, U_real.device
+    ph = phases.to(rdt).transpose(0, 1)                     # (n_seg, M)
+    theta = torch.cat([-ph[:1], ph[:-1] - ph[1:], ph[-1:]], dim=0)
+    th = theta[:, :, None] * cq.to(rdt)                     # (n_seg + 1, M, P)
+    cos, sin = torch.cos(th), torch.sin(th)
+    ones = torch.ones((n_seg + 1, M, D), dtype=rdt, device=dev)
+    # factors[k]: (M, 1, 2, n) = (C, Sg[swap]) of step k
+    factors = torch.stack([torch.cat([ones, cos, cos], dim=-1),
+                           torch.cat([torch.zeros_like(ones), sin, -sin], dim=-1)],
+                          dim=-2)[:, :, None]
+    swap = torch.cat([torch.arange(D), torch.arange(D + P, D + 2 * P),
+                      torch.arange(D, D + P)]).to(dev)
+    UT = U_real.transpose(-1, -2)
+    UT2 = torch.cat([UT, UT.index_select(-2, swap)], dim=-2)   # (M, 2n, n)
+
+    v = x0s.to(rdt).expand(M, *x0s.shape[-2:])
+    S, n = v.shape[-2:]
+    for k in range(n_seg):
+        v = torch.bmm((v.unsqueeze(-2) * factors[k]).reshape(M, S, 2 * n), UT2)
+    halves = v.unsqueeze(-2) * factors[n_seg]               # the last rotation
+    return halves[..., 0, :] + halves[..., 1, :].index_select(-1, swap)
+
+
 def evolve_real_phased(U_real, cq, phases, x0s, D: int, P: int):
-    """Single-schedule real-basis phase-frame evolution (the real twin of
-    propagator.evolve_rhos_phased). x0s: (B, n) states; phases: (n_seg,).
-    Returns (B, n): the many-schedule scan with one schedule of B rows."""
+    """Real-basis phase-frame evolution (the real twin of
+    propagator.evolve_rhos_phased).
+
+    One schedule: U_real (n, n), phases (n_seg,), x0s (B, n) states; returns
+    (B, n), the many-schedule scan with one schedule of B rows.
+    A population with one propagator per member: U_real (M, n, n), phases
+    (M, n_seg), x0s (S, n) or (M, S, n); returns (M, S, n)."""
+    if U_real.ndim == 3:
+        return _evolve_real_phased_population(U_real, cq, phases, x0s, D, P)
     return evolve_real_phased_many(U_real, cq, phases[None], x0s, D, P)[0]
 
 
-__all__ = ["RealRep", "build_real_rep", "real_propagator_device",
+__all__ = ["RealRep", "build_real_rep", "real_propagator_host",
+           "real_propagator_device",
            "to_real_coords", "from_real_coords", "evolve_real_phased_many",
            "evolve_real_phased"]

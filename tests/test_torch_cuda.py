@@ -68,10 +68,36 @@ def test_phase_scan_kernel_matches_twin(cuda, dtype, D, P, B, S, n_seg):
     assert float((got - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
 
 
+def _k2_launches(N, max_sq):
+    """Launches of one chain: none for an empty loop, one on the resident
+    route (N = 81 and below fit at every dtype), one per trip when tiled
+    (N = 256 and above at every dtype)."""
+    return 0 if max_sq == 0 else 1 if N <= 81 else max_sq
+
+
+def _k2_check(cuda, dtype, R, s, max_sq):
+    before = fused_masked_squaring.launches
+    got = fused_masked_squaring(R, s, max_sq)
+    N = R.shape[-1]
+    assert fused_masked_squaring.launches == before + _k2_launches(N, max_sq)
+    ref = _masked_squaring_plain(R, s, max_sq)
+    torch.cuda.synchronize()
+    assert got.shape == R.shape and got.dtype == dtype
+    assert got.data_ptr() != R.data_ptr()
+    assert float((got - ref).abs().max()) <= TOL2[dtype] * float(ref.abs().max())
+
+
+# K2 against its twin: 1e-5 relative at 32 bits, 1e-12 at 64
+TOL2 = {torch.float32: 1e-5, torch.float64: 1e-12,
+        torch.complex64: 1e-5, torch.complex128: 1e-12}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex64, torch.complex128])
 @pytest.mark.parametrize("B,N,max_sq", [(1, 81, 5), (7, 33, 4), (2, 256, 3),
-                                        (3, 16, 0)])
+                                        (3, 16, 0), (5, 1, 3), (3, 130, 4),
+                                        (2, 300, 2), (4, 64, 1), (3, 131, 3),
+                                        (2, 170, 2)])
 def test_masked_squaring_kernel_matches_twin(cuda, dtype, B, N, max_sq):
     rng = np.random.default_rng(N)
     A = rng.standard_normal((B, N, N))
@@ -80,12 +106,63 @@ def test_masked_squaring_kernel_matches_twin(cuda, dtype, B, N, max_sq):
     R = torch.as_tensor(np.eye(N) + A / (4 * N), device=cuda).to(dtype)
     s = torch.as_tensor(rng.integers(0, max_sq + 2, B), device=cuda,
                         dtype=torch.int32)
-    before = fused_masked_squaring.launches
-    got = fused_masked_squaring(R, s, max_sq)
-    assert fused_masked_squaring.launches == before + max_sq
-    ref = _masked_squaring_plain(R, s, max_sq)
+    if N > 81 and not (N == 256 or dtype == torch.complex128):
+        # between the two routes the launch count depends on the dtype; odd
+        # N and 170 x float32 have rows that are no whole 16-byte words, so
+        # the tiled route stages them element by element
+        got = fused_masked_squaring(R, s, max_sq)
+        ref = _masked_squaring_plain(R, s, max_sq)
+        assert float((got - ref).abs().max()) <= TOL2[dtype] * float(ref.abs().max())
+        return
+    _k2_check(cuda, dtype, R, s, max_sq)
+
+
+def _batched_inputs(cuda, B, N, dtype, s_kind, seed=9):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    R = torch.randn((B, N, N), dtype=dtype, device=cuda, generator=gen)
+    R = torch.eye(N, dtype=dtype, device=cuda) + R * (0.05 / N ** 0.5)
+    if s_kind == "mixed":
+        s = torch.randint(0, 7, (B,), device=cuda, generator=gen,
+                          dtype=torch.int32)
+    else:
+        s = torch.full((B,), s_kind, device=cuda, dtype=torch.int32)
+    return R, s
+
+
+@pytest.mark.parametrize("B,N,dtype,max_sq,s_kind", [
+    (15, 81, torch.float32, 12, 3),          # a default DE generation
+    (1024, 81, torch.float32, 12, 3),        # a card-sized population
+    (1024, 81, torch.float32, 12, "mixed"),
+    (75, 81, torch.complex64, 12, 3),        # bang-bang, P = 15
+    (5120, 81, torch.complex64, 12, 3),      # bang-bang, P = 1024
+    (300, 81, torch.complex64, 4, 3),        # per-segment engine, dim 3
+    (300, 256, torch.complex64, 4, 3),       # per-segment engine, dim 4
+    (7, 256, torch.complex64, 12, "mixed"),  # tiled route, chains of all lengths
+    (64, 81, torch.complex128, 12, "mixed"),
+    (64, 81, torch.float64, 12, "mixed"),
+    (300, 81, torch.complex64, 2, 3),        # max_squarings below every s
+    (9, 256, torch.float32, 2, "mixed"),
+])
+def test_masked_squaring_kernel_batched_shapes(cuda, B, N, dtype, max_sq, s_kind):
+    """Both routes at the shapes the optimizer and the per-segment engine
+    launch, uniform and mixed squaring counts."""
+    R, s = _batched_inputs(cuda, B, N, dtype, s_kind)
+    _k2_check(cuda, dtype, R, s, max_sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64,
+                                   torch.complex128])
+@pytest.mark.parametrize("B,N", [(33, 81), (5, 256)])
+def test_masked_squaring_kernel_all_masked(cuda, dtype, B, N):
+    """Every matrix masked out from trip 0 (s = 0, as the zero-length
+    segments of a bang-bang schedule give): the output is the input, bit
+    for bit, in a new buffer."""
+    R, s = _batched_inputs(cuda, B, N, dtype, 0)
+    got = fused_masked_squaring(R, s, 12)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    assert got.data_ptr() != R.data_ptr()
+    assert torch.equal(got, R)
 
 
 def test_kernels_reject_unsupported_dtypes(cuda):

@@ -123,3 +123,45 @@ def test_squaring_wrapper_dispatch():
         fused_masked_squaring(R.to("meta"), s.to("meta"), 3)
     with pytest.raises(ValueError):
         fused_masked_squaring(R, s[:1], 3)
+
+
+def _cases():
+    rng = np.random.default_rng(13)
+    N = 12
+    R = np.eye(N) + 0.05 * rng.standard_normal((6, N, N)) / np.sqrt(N)
+    return {
+        # a zero-length segment: exp(0) = I needs no squaring
+        "identity_s0": (np.broadcast_to(np.eye(N), (3, N, N)).copy(),
+                        np.zeros(3, np.int32), 12),
+        # one fixed loop of 12 trips, chains of every length inside it
+        "mixed_s_12_trips": (R, np.array([0, 1, 3, 6, 2, 5], np.int32), 12),
+        # the loop is shorter than some chains: they stop at its end
+        "max_squarings_below_s": (R, np.array([0, 1, 3, 6, 2, 5], np.int32), 2),
+        "every_matrix_masked": (R, np.zeros(6, np.int32), 12),
+    }
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-13), (np.complex128, 1e-13),
+                                       (np.float32, 1e-5), (np.complex64, 1e-5)])
+@pytest.mark.parametrize("case", list(_cases()))
+def test_squaring_twin_matches_reference_loop(case, dtype, tol):
+    """K2's plain twin against the reference's own masked squaring loop
+    (ops/expm._square) on the cases the optimizer brings."""
+    R, s, ms = _cases()[case]
+    R = R.astype(dtype)
+    if np.iscomplexobj(R):
+        R = R * np.exp(0.3j).astype(dtype)
+    ref = np.asarray(jexpm._square(jnp.asarray(R), jnp.asarray(s), ms))
+    got = fused_masked_squaring(torch.from_numpy(R), torch.from_numpy(s), ms)
+    assert got.dtype == torch.from_numpy(R).dtype
+    assert _rel(got.numpy(), ref) <= tol
+    if not s.any():
+        assert np.array_equal(got.numpy(), R)          # untouched, bit for bit
+
+
+def test_expm_of_zero_is_identity_without_squaring():
+    A = torch.zeros((3, 9, 9), dtype=torch.complex64)
+    _, s = texpm._scale(A, texpm._THETA16, 12)
+    assert int(s.max()) == 0
+    got = texpm.expm(A)
+    assert torch.equal(got, torch.eye(9, dtype=torch.complex64).expand(3, 9, 9))

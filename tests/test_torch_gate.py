@@ -185,6 +185,7 @@ def _device_defaults():
     import dataclasses
     import inspect
     from noisyquantumsimulator_tpu_torch import bench_bb
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward, sweeps
     from noisyquantumsimulator_tpu_torch.qec import dem_decoder, fast_sampler, ldpc
     fns = {"plan_cz_gate": tsim.plan_cz_gate,
            "plan_from_numpy": tsim.plan_from_numpy,
@@ -196,10 +197,19 @@ def _device_defaults():
            "run_bb_memory": ldpc.run_bb_memory,
            "run_bb_circuit_memory": ldpc.run_bb_circuit_memory,
            "build_fast_sampler": fast_sampler.build_fast_sampler,
-           "sample_circuit_fast": fast_sampler.sample_circuit_fast}
+           "sample_circuit_fast": fast_sampler.sample_circuit_fast,
+           "build_fixed_problem": engine.build_fixed_problem,
+           "problem_from_numpy": engine.problem_from_numpy,
+           "make_spacing_population_objective":
+               engine.make_spacing_population_objective,
+           "optimize_cz_gate": forward.optimize_cz_gate,
+           "run_baseline": forward.run_baseline,
+           "protocol_sweep": sweeps.protocol_sweep,
+           "hardware_sweep": sweeps.hardware_sweep,
+           "standard_research_sweeps": sweeps.standard_research_sweeps}
     out = {k: inspect.signature(f).parameters["device"].default
            for k, f in fns.items()}
-    for cls in (tsim.GatePlan, ldpc.BPDecoder):
+    for cls in (tsim.GatePlan, ldpc.BPDecoder, engine.FixedProblem):
         field, = (f for f in dataclasses.fields(cls) if f.name == "device")
         out[cls.__name__] = field.default
     return out
@@ -209,7 +219,10 @@ def _device_defaults():
     "plan_cz_gate", "plan_from_numpy", "simulate_cz_gate", "build_workload",
     "build_bb_workload", "DemBPDecoder", "decoder_from_numpy", "run_bb_memory",
     "run_bb_circuit_memory", "build_fast_sampler", "sample_circuit_fast",
-    "GatePlan", "BPDecoder"])
+    "GatePlan", "BPDecoder", "build_fixed_problem", "problem_from_numpy",
+    "make_spacing_population_objective", "optimize_cz_gate", "run_baseline",
+    "protocol_sweep", "hardware_sweep", "standard_research_sweeps",
+    "FixedProblem"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points run on the card unless the caller asks for
     the CPU (checked without a card: only the declared default)."""
