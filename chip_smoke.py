@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main paths once on one GPU: the CZ gate
-engine, the BB-LDPC sample + BP decode path and the optimizer's forward path.
+engine, the BB-LDPC sample + BP decode path, the optimizer's forward and
+gradient paths and the channel / calibration bridge.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
     python3 chip_smoke.py --only optimizer   (phases 1, 2, 9 and 10)
+    python3 chip_smoke.py --only gradients   (phases 1, 2 and 11)
+    python3 chip_smoke.py --only channel     (phases 1, 2 and 12)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -46,12 +49,30 @@ each; any failure raises and the script exits non-zero:
               and which binds; mixed s must cost less than uniform s = max
  10. optimizer  the population objectives of optimize/engine.py at P = 1024:
               smooth JP (300 segments, float32 real core) and bang-bang (5
-              segments, complex64): evaluations/s, K2 launches per call, a
-              profiler window of 3 calls, 8 members against the complex128
+              segments, complex64): evaluations/s, K2 launches per call
+              (exactly one; no autograd graph recorded), a profiler window of 3 calls, 8 members against the complex128
               per-segment path; the per-segment engine of one gate at dim 4
               against the phase-frame route; then optimize_cz_gate("smooth_jp",
               maxiter=10, popsize=15, grad_polish=False, seed=42): history
               does not increase, final fidelity no lower than at x0
+ 11. gradients  K2's autograd Function (forward K2, trips recomputed with
+              K2, reverse loop in torch.matmul) against autograd through its
+              twin at (1, 81) f32, (5, 81) c64 with s = 9..11, (2, 256) c64
+              (tiled) and (4, 81) c128 mixed s; make_value_and_grad of smooth
+              JP at x0, 300 segments: the float64 real core against the
+              complex128 per-segment path, float32 against float64; the
+              median ms of 5 value-and-grad calls (smooth JP float32, bang-bang
+              complex64) and of 5 GRAPE Adam steps at 300 phases, each with
+              its device idle share and K2 launches per call; then
+              optimize_cz_gate("smooth_jp", maxiter=10, popsize=15, seed=42)
+              with its default polish against grad_polish=False, and
+              optimize_cz_gate("grape", grape_steps=50)
+ 12. channel    extract_cz_channel() at complex64 and complex128 against
+              phase 5's host complex128 propagator (scipy expm, ordered
+              product), projected alike: superop within 1e-4 / 1e-10, F_avg, mean leakage,
+              CP/TP; calibrate_cz into a temporary CalibrationStore and read
+              back; seconds per extraction and K2 launches; K2 at the
+              channel's (300, 81) complex64 squaring inputs vs its twin
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -383,8 +404,8 @@ def phase_k2_batched(launch_ms):
     return rows
 
 
-def _host_reference_states(plan):
-    """Host complex128 phase-frame result (scipy expm + ordered product),
+def _host_reference_propagator(plan):
+    """Host complex128 phase-frame propagator (scipy expm + ordered product),
     the same algorithm as the reference bench's x64 tier."""
     from scipy.linalg import expm as sexpm
     from noisyquantumsimulator_tpu_torch.gate.simulate import plan_phase_frame
@@ -398,7 +419,12 @@ def _host_reference_states(plan):
         W = Ub if prev is None else Ub * np.exp(1j * (prev - ph[k]) * g)[None, :]
         U = W @ U
         prev = ph[k]
-    U = np.exp(1j * ph[-1] * g)[:, None] * U * np.exp(-1j * ph[0] * g)[None, :]
+    return np.exp(1j * ph[-1] * g)[:, None] * U * np.exp(-1j * ph[0] * g)[None, :]
+
+
+def _host_reference_states(plan):
+    """The four computational states evolved by _host_reference_propagator."""
+    U = _host_reference_propagator(plan)
     D = plan.rho0s.shape[-1]
     return (plan.rho0s[:4].reshape(4, D * D) @ U.T).reshape(4, D, D)
 
@@ -863,7 +889,9 @@ def _drive_population(tag, obj, pop, what):
         times.append(time.perf_counter() - t0)
     launches = fused_masked_squaring.launches
     med = statistics.median(times)
-    require(launches > 0, f"K2 launched by the {what} objective")
+    require(launches == 5, f"K2 launched once a call by the {what} objective")
+    require(cost.grad_fn is None and not cost.requires_grad,
+            f"{what}: the population objective records no autograd graph")
     require(cost.shape == (P,) and bool(torch.isfinite(cost).all()),
             f"{what}: one finite cost per member")
     say("10 optimizer", f"{what}, P = {P}: median {med * 1e3:.3f} ms of 5 calls "
@@ -1036,6 +1064,342 @@ def phase_optimizer():
     return launches, {"smooth_jp": rate_sj, "jp_bangbang": rate_bb}
 
 
+# K2's gradient against autograd through its twin: (B, N, dtype, squaring
+# counts, who runs it). Inputs: Taylor-16 of skew-Hermitian K / 2^s, so every
+# chain stays near a unitary however many squarings it takes.
+K2_GRAD = (
+    (1, 81, "float32", [3], "the real core's expm (value_and_grad, smooth JP)"),
+    (5, 81, "complex64", [9, 10, 11, 10, 9], "bang-bang's segments"),
+    (2, 256, "complex64", [3, 3], "the tiled route"),
+    (4, 81, "complex128", [0, 2, 5, 1], "the 64-bit tier, mixed s"),
+)
+
+
+def _chain_inputs(B, N, dtype, s, seed):
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm import _taylor16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    X = torch.randn((B, N, N), dtype=dtype, device="cuda", generator=gen)
+    K = X - X.mH
+    As = K * (1.8 / K.abs().sum(-2).amax(-1))[:, None, None]
+    I = torch.eye(N, dtype=dtype, device="cuda").expand(As.shape)
+    G = torch.randn((B, N, N), dtype=dtype, device="cuda", generator=gen)
+    return (_taylor16(As, I).contiguous(),
+            torch.tensor(s, dtype=torch.int32, device="cuda"), G)
+
+
+def _k2_grad_checks():
+    """K2's Function gradient against autograd through the plain twin at
+    K2_GRAD; forward + backward times of both (not counted)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
+        _masked_squaring_plain, fused_masked_squaring)
+    for i, (B, N, dtname, s_list, who) in enumerate(K2_GRAD):
+        dt = getattr(torch, dtname)
+        ms = 12 if N <= 81 else 4
+        R, s, G = _chain_inputs(B, N, dt, s_list, SEED + 110 + i)
+
+        def grad_of(square):
+            Rg = R.clone().requires_grad_(True)
+            return torch.autograd.grad((square(Rg, s, ms) * G).real.sum(), Rg)[0]
+        before = fused_masked_squaring.launches
+        got = grad_of(fused_masked_squaring)
+        n_launch = fused_masked_squaring.launches - before
+        ref = grad_of(_masked_squaring_plain)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+        tol = 1e-5 if dtname in ("float32", "complex64") else 1e-12
+        require(bool(torch.isfinite(torch.view_as_real(got) if dt.is_complex
+                                    else got).all()), "K2 gradient finite")
+        require(rel <= tol, f"K2 gradient ({B}, {N}) {dtname}: {rel:.3e} > {tol}")
+        k_ms, p_ms = _kernel_vs_plain_ms(
+            lambda: grad_of(fused_masked_squaring),
+            lambda: grad_of(_masked_squaring_plain), 10)
+        say("11 gradients", f"K2 Function ({B}, {N}) {dtname} s={s_list} [{who}]: "
+            f"|grad - autograd through the twin| / |grad| = {rel:.3e} (tol {tol}); "
+            f"K2 launches forward + backward {n_launch}; forward + backward "
+            f"{k_ms:.4f} ms (autograd through the twin {p_ms:.4f} ms)")
+
+
+def _time_calls(fn, what, tag, n=5):
+    """Warm-up, then n timed calls with K2's count set to 0 just before and
+    read just after; a profiler window of 3 calls (not counted). Returns
+    (median ms, K2 launches of the n calls, idle share or None)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    fn()
+    torch.cuda.synchronize()
+    fused_masked_squaring.launches = 0
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = fused_masked_squaring.launches
+    require(launches > 0, f"K2 launched by {what}")
+    med = statistics.median(times) * 1e3
+    _, idle, by_name, path = _profile_window(fn, tag)
+    idle_txt = "not measured (no device events)" if idle is None else f"{idle:.4f}"
+    k2_txt = "" if by_name is None else (
+        f", K2 {_share(by_name, 'masked_square') * 100:.2f}% of device time")
+    say("11 gradients", f"{what}: median {med:.3f} ms of {n} (times ms "
+        f"{[round(t * 1e3, 3) for t in times]}); K2 launches per call "
+        f"{launches / n:g}; device idle share {idle_txt}{k2_txt} (trace {path})")
+    return med, launches, idle
+
+
+def phase_gradients(launch_ms):
+    """Phase 11: the gradient paths. Returns K2's record for the kernels
+    line, at the value-and-grad expm's squaring inputs."""
+    import dataclasses
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm import _THETA16, _scale, _taylor16
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
+        _masked_squaring_plain, fused_masked_squaring)
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    _k2_grad_checks()
+
+    app = ApparatusConstraints()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        problem = engine.build_fixed_problem(app, app.make_full_noise())
+    x0 = forward.get_smooth_jp_bounds_and_x0()[1]
+    c64, g64 = engine.make_value_and_grad(problem, "smooth_jp",
+                                          dtype=torch.complex128)(x0)
+    cs, gs = engine.make_value_and_grad(dataclasses.replace(problem, g=None),
+                                        "smooth_jp", dtype=torch.complex128)(x0)
+    c32, g32 = engine.make_value_and_grad(problem, "smooth_jp")(x0)
+    rel_c = abs(float(c64) - float(cs)) / abs(float(cs))
+    rel_g = float(torch.linalg.norm(g64 - gs) / torch.linalg.norm(gs))
+    g32d = g32.double()
+    cos = float(g32d @ g64 / (torch.linalg.norm(g32d) * torch.linalg.norm(g64)))
+    rel32 = float(torch.linalg.norm(g32d - g64) / torch.linalg.norm(g64))
+    say("11 gradients", f"make_value_and_grad smooth_jp at x0, 300 segments: cost "
+        f"{float(c64):.6f} (float64 real core) vs {float(cs):.6f} (complex128 "
+        f"per-segment): relative {rel_c:.3e}, gradient relative {rel_g:.3e} (tol "
+        f"1e-7); float32 cost {float(c32):.6f}, gradient cosine to float64 "
+        f"{cos:.7f} (tol 0.999), relative error {rel32:.3e}; |grad| "
+        f"{float(torch.linalg.norm(g64)):.4e}")
+    require(rel_c <= 1e-7 and rel_g <= 1e-7, "real core gradient = per-segment")
+    require(cos >= 0.999, f"float32 gradient cosine {cos} >= 0.999")
+
+    vg = engine.make_value_and_grad(problem, "smooth_jp")
+    x0_dev = torch.as_tensor(x0, device="cuda")
+    ms_sj, l_sj, idle_sj = _time_calls(
+        lambda: float(vg(x0_dev)[0]), "value_and_grad smooth_jp (300 segments, "
+        "float32 real core, population of one)", "grad_smooth_jp")
+    xb = torch.as_tensor(forward.get_jp_bangbang_bounds_and_x0(5)[1], device="cuda")
+    vgb = engine.make_value_and_grad(problem, "jp_bangbang", n_segments=5)
+    ms_bb, l_bb, idle_bb = _time_calls(
+        lambda: float(vgb(xb)[0]), "value_and_grad jp_bangbang (5 segments, "
+        "complex64)", "grad_bangbang")
+    ph0 = engine.smooth_jp_uniform_from_params(
+        torch.as_tensor(x0), problem, n_steps=300)[0]
+    kw = dict(omega_tau=float(x0[0]), delta_over_omega=float(x0[4]))
+    vgg = engine.make_value_and_grad(problem, "grape", **kw)
+    ph = ph0.to(device="cuda", dtype=torch.float32).clone().requires_grad_(True)
+    adam = forward.grape_adam(ph, 2e-3)
+
+    def grape_step():
+        cost, grad = vgg(ph.detach())
+        ph.grad = grad
+        adam.step()
+        return cost
+    ms_gr, l_gr, idle_gr = _time_calls(
+        grape_step, "GRAPE Adam step (300 phases, float32)", "grad_grape")
+
+    # --- the entry point with its default polish, against DE alone
+    runs = {}
+    for polish in (False, True):
+        fused_masked_squaring.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            res = (forward.optimize_cz_gate("smooth_jp", maxiter=10, popsize=15,
+                                            seed=42) if polish else
+                   forward.optimize_cz_gate("smooth_jp", maxiter=10, popsize=15,
+                                            seed=42, grad_polish=False))
+        runs[polish] = (res, time.perf_counter() - t0,
+                        fused_masked_squaring.launches)
+    (de, de_s, de_l), (pol, pol_s, pol_l) = runs[False], runs[True]
+    say("11 gradients", f"optimize_cz_gate('smooth_jp', maxiter=10, popsize=15, "
+        f"seed=42): DE alone cost {de.best_cost:.6f} F {de.best_metrics['avg_fidelity']:.6f} "
+        f"in {de_s:.2f} s ({de_l} K2 launches); with the default polish cost "
+        f"{pol.best_cost:.6f} F {pol.best_metrics['avg_fidelity']:.6f} in "
+        f"{pol_s:.2f} s ({pol_l} K2 launches, {pol.n_evaluations - de.n_evaluations}"
+        f" gradient steps): gain {de.best_cost - pol.best_cost:.6f} in cost, "
+        f"polish wall {pol_s - de_s:.2f} s")
+    require(pol.best_cost <= de.best_cost, "the polish ends no worse than DE")
+    require(pol_l > de_l, "K2 launched by the polish")
+
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        gr = forward.optimize_cz_gate("grape", grape_steps=50)
+    gr_s = time.perf_counter() - t0
+    gr_l = fused_masked_squaring.launches
+    F_gr = gr.best_metrics["avg_fidelity"]
+    say("11 gradients", f"optimize_cz_gate('grape', grape_steps=50): history "
+        f"{[round(h, 4) for h in gr.history]}, F = {F_gr:.6f}, {gr_s:.2f} s, "
+        f"K2 launches {gr_l}")
+    require(gr.history[-1] <= gr.history[0], "GRAPE history does not rise")
+    require(F_gr > 0.95 and gr_l > 0, f"GRAPE F {F_gr} > 0.95, K2 launched")
+
+    # --- K2 at the value-and-grad expm's squaring inputs (not counted)
+    with torch.no_grad():
+        _, dt, det = engine.smooth_jp_uniform_from_params(
+            x0_dev.float()[None], problem)
+        put = lambda a: torch.as_tensor(a, device="cuda")
+        A = ((put(problem.R_L0) + det[:, None, None] * put(problem.R_Cd)
+              + put(problem.R_drive)) * dt[:, None, None])
+        As, s = _scale(A, _THETA16, 12)
+        R = _taylor16(As, torch.eye(A.shape[-1], device="cuda").expand(A.shape))
+        got, ref = fused_masked_squaring(R, s, 12), _masked_squaring_plain(R, s, 12)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    require(err <= 1e-5 * float(ref.abs().max()), "K2 at value_and_grad's inputs")
+    k_ms, p_ms = _kernel_vs_plain_ms(lambda: fused_masked_squaring(R, s, 12),
+                                     lambda: _masked_squaring_plain(R, s, 12), 50)
+    lib_fn = lambda: torch.linalg.matrix_power(R, 2 ** int(s[0]))
+    lib_fn()
+    lib_ms = min(_cuda_ms(lib_fn, 50), _cuda_ms(lib_fn, 50))
+    _, binds, terms = _k2_bound_ms(R, s, 12, launch_ms)
+    by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
+    say("11 gradients", f"K2 (1, 81) float32 at the value-and-grad expm, s = "
+        f"{int(s[0])}: max|kernel - twin| {err:.3e}; kernel {k_ms:.4f} ms, plain "
+        f"twin {p_ms:.4f} ms, matrix_power {lib_ms:.4f} ms; bound {terms[by]:.6f} "
+        f"ms ({by}; of operations, bytes and one empty launch the {binds} "
+        f"binds)")
+    return {"name": "K2 masked_squaring (1, 81) float32 [value_and_grad]",
+            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": l_sj, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": terms[by], "bound_by": by, "library_ms": lib_ms,
+            "library_call": "torch.linalg.matrix_power(R, 2**s)",
+            "empty_launch_ms": terms["launch"], "binds": binds,
+            "launched_by": "5 value_and_grad calls of smooth JP (forward and "
+                           "backward recompute)",
+            "shape": "B=1 N=81 float32, 12 trips (resident route)"}
+
+
+def _host_channel_reference(plan):
+    """Host complex128 qubit-subspace superop of a plan, from phase 5's
+    host propagator (one scipy expm, phase rotations and the ordered
+    product), independent of the card's per-segment expm."""
+    from noisyquantumsimulator_tpu_torch.channels.tomography import (
+        _subspace_superop)
+    return _subspace_superop(_host_reference_propagator(plan),
+                             plan.hilbert_space_dim)
+
+
+def phase_channel(launch_ms):
+    """Phase 12: the channel / calibration bridge. Returns its K2 launches
+    and its kernels-line record."""
+    import tempfile
+    import torch
+    from noisyquantumsimulator_tpu_torch.channels import (
+        CalibrationStore, calibrate_cz, extract_cz_channel)
+    from noisyquantumsimulator_tpu_torch.core.configs import (
+        SmoothJPSimulationInputs)
+    from noisyquantumsimulator_tpu_torch.gate.simulate import plan_cz_gate
+    from noisyquantumsimulator_tpu_torch.ops.expm import _THETA13, _pade13, _scale
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
+        _masked_squaring_plain, fused_masked_squaring)
+    from noisyquantumsimulator_tpu_torch.solver.propagator import (
+        segment_liouvillians)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        plan = plan_cz_gate(SmoothJPSimulationInputs())
+    t0 = time.perf_counter()
+    S_ref = _host_channel_reference(plan)
+    say("12 channel", f"host complex128 reference (scipy expm + ordered product "
+        f"of {len(plan.schedule.dts)} phase-rotated segments): "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for dt, tol in ((torch.complex64, 1e-4), (torch.complex128, 1e-10)):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            extract_cz_channel(dtype=dt)                       # warm-up
+            torch.cuda.synchronize()
+            fused_masked_squaring.launches = 0
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ch = extract_cz_channel(dtype=dt)
+                walls.append(time.perf_counter() - t0)
+        launches[str(dt)] = fused_masked_squaring.launches
+        err = float(np.abs(ch.superop - S_ref).max())
+        require(np.all(np.isfinite(ch.superop)) and ch.superop.shape == (16, 16),
+                "channel superop finite, (16, 16)")
+        require(err <= tol, f"channel {dt}: max|dS| {err:.3e} > {tol}")
+        require(launches[str(dt)] > 0, "K2 launched by the channel extraction")
+        say("12 channel", f"extract_cz_channel(dtype={dt}) on the card: max|S - "
+            f"S_host| = {err:.3e} (tol {tol}); F_avg {ch.avg_gate_fidelity:.9f}, "
+            f"process F {ch.process_fidelity:.9f}, mean leakage "
+            f"{ch.mean_leakage:.6e}, CP {ch.completely_positive}, TP "
+            f"{ch.trace_preserving}; median {statistics.median(walls):.4f} s per "
+            f"extraction of 3 (plan included; {walls}); K2 launches per "
+            f"extraction {launches[str(dt)] / 3:g}")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = CalibrationStore(tmp)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            rec = calibrate_cz(store=store)
+        back = store.load("neutral_atoms", "rydberg_cz", rec.regime)
+        S_back = store.load_superop("neutral_atoms", "rydberg_cz", rec.regime)
+        n_files = len(store.list_records())
+    require(back.to_json() == json.loads(json.dumps(rec.to_json())),
+            "calibration record reads back as written")
+    require(S_back.shape == (16, 16) and n_files == 1, "one record, (16, 16)")
+    probs = np.asarray(rec.pauli_error_probs)
+    require(abs(probs.sum() - 1) < 1e-6 and probs[0] > 0.9,
+            "twirled Pauli probabilities normalised, mostly no error")
+    say("12 channel", f"calibrate_cz into a temporary store: {rec.regime}, avg "
+        f"gate infidelity {rec.error_rates['avg_gate_infidelity']:.6e}, p(II) "
+        f"{probs[0]:.6f}; read back equal")
+
+    # --- K2 at the channel's squaring inputs (not counted)
+    put = lambda a: torch.as_tensor(np.asarray(a), device="cuda").to(torch.complex64)
+    A = segment_liouvillians(put(plan.L0), put(plan.Cp), put(plan.Cm), plan.schedule)
+    As, s = _scale(A, _THETA13, 12)            # the channel's Pade-13 expm
+    R = _pade13(As, torch.eye(A.shape[-1], dtype=A.dtype, device="cuda")
+                .expand(A.shape)).contiguous()
+    got, ref = fused_masked_squaring(R, s, 12), _masked_squaring_plain(R, s, 12)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    require(err <= 1e-5 * float(ref.abs().max()), "K2 at the channel's inputs")
+    k_ms, p_ms = _kernel_vs_plain_ms(lambda: fused_masked_squaring(R, s, 12),
+                                     lambda: _masked_squaring_plain(R, s, 12), 20)
+    uniform = bool((s == s[0]).all())
+    lib_ms = None
+    if uniform:
+        lib_fn = lambda: torch.linalg.matrix_power(R, 2 ** int(s[0]))
+        lib_fn()
+        lib_ms = min(_cuda_ms(lib_fn, 20), _cuda_ms(lib_fn, 20))
+    _, binds, terms = _k2_bound_ms(R, s, 12, launch_ms)
+    by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
+    say("12 channel", f"K2 (300, 81) complex64, s in [{int(s.min())}, "
+        f"{int(s.max())}]: max|kernel - twin| {err:.3e}; kernel {k_ms:.4f} ms, "
+        f"plain twin {p_ms:.4f} ms, matrix_power "
+        f"{'none (s differs)' if lib_ms is None else f'{lib_ms:.4f} ms'}; bound "
+        f"{terms[by]:.5f} ms ({by}; of operations, bytes and one empty launch "
+        f"the {binds} binds)")
+    return launches, {
+        "name": "K2 masked_squaring (300, 81) complex64 [channel]",
+        "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+        "launches": launches["torch.complex64"],
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": terms[by], "bound_by": by, "library_ms": lib_ms,
+        "library_call": "torch.linalg.matrix_power(R, 2**s)",
+        "empty_launch_ms": terms["launch"], "binds": binds,
+        "launched_by": "extract_cz_channel complex64, 3 extractions",
+        "shape": "B=300 N=81 complex64, 12 trips (resident route)"}
+
+
 def _k2_entries(rows, launches):
     """K2's records at its batched shapes for the kernels line: phase 9's
     measurements beside the launches of phase 10's runs."""
@@ -1065,9 +1429,10 @@ def _k2_entries(rows, launches):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("k2", "optimizer"),
-                    help="run phases 1, 2 and 9 (k2) or 1, 2, 9 and 10 "
-                         "(optimizer) only, and print no result line")
+    ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel"),
+                    help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
+                         "(optimizer), 1, 2 and 11 (gradients) or 1, 2 and 12 "
+                         "(channel) only, and print no result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -1079,6 +1444,12 @@ def main(argv=None) -> int:
     launch_ms = _empty_launch_ms()
     say("2 build", f"one empty kernel launch: {launch_ms * 1e3:.3f} us (2000 "
         "back to back, best of 3): no kernel's bound is below it")
+    if args.only == "gradients":
+        phase_gradients(launch_ms)
+        return 0
+    if args.only == "channel":
+        phase_channel(launch_ms)
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -1093,6 +1464,8 @@ def main(argv=None) -> int:
     rows = phase_k2_batched(launch_ms)
     launches, _ = phase_optimizer()
     kernels.extend(_k2_entries(rows, launches))
+    kernels.append(phase_gradients(launch_ms))
+    kernels.append(phase_channel(launch_ms)[1])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -15,6 +15,18 @@ matrix pair that fits in one block's shared memory (N = 81 at every dtype)
 runs its whole chain in ONE launch; larger matrices (N = 256) take one
 launch per trip through tiles, with two scratch buffers. Either way a trip
 past s[b] moves no byte of matrix b.
+
+Gradients: when R requires grad (and grad mode is on) the chain runs as the
+autograd Function `_MaskedSquaringFn`. Its forward is the same dispatch and
+saves only R and s. Its backward reads T = min(max s, max_squarings) once,
+recomputes the inputs R_0 .. R_{T-1} of the trips with the same dispatch
+(K2 on the card, one trip a launch with the mask s > i), and runs the
+reverse masked loop
+
+    G <- where(s > i, G R_i^H + R_i^H G, G),   i = T-1 .. 0
+
+with torch.matmul: the gradient of Y = R R in PyTorch's conjugate-Wirtinger
+convention (^H is ^T for real dtypes). s gets no gradient.
 """
 from __future__ import annotations
 
@@ -47,11 +59,21 @@ def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
 
     CUDA tensors: kernel K2, one launch per chain on its resident route and
     one per trip on its tiled route (counted in
-    `fused_masked_squaring.launches`). CPU tensors: the plain twin."""
+    `fused_masked_squaring.launches`). CPU tensors: the plain twin. When R
+    requires grad the chain is differentiable in R (`_MaskedSquaringFn`);
+    otherwise nothing is recorded."""
     if R.ndim != 3 or R.shape[-1] != R.shape[-2]:
         raise ValueError(f"R must be (B, N, N), got {tuple(R.shape)}")
     if s.shape != R.shape[:1]:
         raise ValueError(f"s must be ({R.shape[0]},), got {tuple(s.shape)}")
+    if torch.is_grad_enabled() and R.requires_grad:
+        return _MaskedSquaringFn.apply(R, s, int(max_squarings))
+    return _squaring(R, s, max_squarings)
+
+
+def _squaring(R: torch.Tensor, s: torch.Tensor,
+              max_squarings: int) -> torch.Tensor:
+    """The chain on R's device: the twin on the CPU, K2 on the card."""
     if R.device.type == "cpu":
         return _masked_squaring_plain(R, s, max_squarings)
     if R.device.type != "cuda":
@@ -82,6 +104,31 @@ def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
         _kernels.check(lib, rc, "masked squaring kernel")
     fused_masked_squaring.launches += 1 if resident else int(max_squarings)
     return out
+
+
+class _MaskedSquaringFn(torch.autograd.Function):
+    """The masked squaring chain with a backward (see the module docstring).
+    The trips' inputs are recomputed, not kept: the forward saves R and s."""
+
+    @staticmethod
+    def forward(ctx, R, s, max_squarings):
+        ctx.save_for_backward(R, s)
+        ctx.max_squarings = max_squarings
+        return _squaring(R, s, max_squarings)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, G):
+        R, s = ctx.saved_tensors
+        T = min(int(s.max()), ctx.max_squarings) if s.numel() else 0
+        trips = [R]
+        for i in range(T - 1):
+            trips.append(_squaring(trips[-1], (s > i).to(torch.int32), 1))
+        s_b = s.reshape(-1, 1, 1)
+        for i in range(T - 1, -1, -1):
+            RH = trips[i].mH
+            G = torch.where(s_b > i, G @ RH + RH @ G, G)
+        return G, None, None
 
 
 fused_masked_squaring.launches = 0

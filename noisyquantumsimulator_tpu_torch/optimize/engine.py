@@ -20,8 +20,13 @@ Two cores:
     batched expm over (P * n_seg, n, n) and one ordered product.
 Every expm ends in the masked squaring chain, kernel K2 on the card.
 
-The constants go to the device once, when an objective is made. Gradients
-(`make_value_and_grad` of the reference) are not ported yet.
+The constants go to the device once, when an objective is made. The
+population objectives run under torch.no_grad and record no graph.
+`make_value_and_grad` runs the same core on a population of one with
+autograd on, for the gradient polish and GRAPE: its gradient flows through
+the schedule builders, the expm (K2 as a torch.autograd.Function,
+ops/expm_cuda.py) and the scan or the ordered product into every protocol
+parameter.
 """
 from __future__ import annotations
 
@@ -417,6 +422,28 @@ def make_objective(problem: FixedProblem, protocol: str, device=None,
     return objective
 
 
+def make_value_and_grad(problem: FixedProblem, protocol: str, device=None,
+                        dtype: Optional[torch.dtype] = None,
+                        **builder_kwargs) -> Callable:
+    """cost_and_grad(params) -> (cost, dcost/dparams): a 0-d tensor and an
+    (n_params,) tensor on the device, in the real dtype of `dtype` (default:
+    the problem's). The core is the population objective's, on a population
+    of one; the gradient comes from torch.autograd.grad, so nothing is left
+    on the constants or on the caller's tensors."""
+    key = _check_protocol(protocol)
+    device, dtype = _where(problem, device, dtype)
+    core = _make_eval_core(problem, key, builder_kwargs, device, dtype)
+
+    def call(params):
+        x = _params_on(params, device, dtype).detach().requires_grad_(True)
+        with torch.enable_grad():
+            cost = core(x[None])[0][0]
+            (grad,) = torch.autograd.grad(cost, x)
+        return cost.detach(), grad
+
+    return call
+
+
 def make_population_objective(problem: FixedProblem, protocol: str,
                               device=None,
                               dtype: Optional[torch.dtype] = None,
@@ -509,7 +536,7 @@ def make_spacing_population_objective(apparatus: ApparatusConstraints,
 
 
 __all__ = ["FixedProblem", "build_fixed_problem", "problem_from_numpy",
-           "make_objective", "make_population_objective",
+           "make_objective", "make_value_and_grad", "make_population_objective",
            "make_spacing_population_objective",
            "lp_schedule_from_params", "smooth_jp_schedule_from_params",
            "free_phases_schedule_from_params",

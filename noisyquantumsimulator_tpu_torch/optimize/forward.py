@@ -4,12 +4,9 @@ Counterpart of the reference's `optimize/forward.py`, the rebuild of the
 original forward optimizer (optimize_cz_gate.py:786-1496 `optimize_cz_gate`,
 `run_baseline`, CLI `main`): differential evolution evaluates whole
 populations in one batched device call (optimize/de.py) instead of ~1200
-serial gate sims.
-
-Not ported yet: the gradient polish of the DE optimum and protocol="grape"
-(both need gradients through the matrix exponential). `grad_polish=True`,
-the signature's default, and protocol="grape" raise NotImplementedError:
-pass `grad_polish=False` for the DE result alone.
+serial gate sims. By default a gradient polish (`make_value_and_grad`,
+gradients through the matrix exponential) refines the DE optimum, and
+protocol="grape" descends every per-segment phase with Adam.
 """
 from __future__ import annotations
 
@@ -23,17 +20,16 @@ from ..core.configs import (JPSimulationInputs, LPSimulationInputs,
                             SmoothJPSimulationInputs)
 from ..physics import protocols as proto
 from ..gate.simulate import simulate_cz_gate
+from ..solver.propagator import real_dtype
 from .apparatus import ApparatusConstraints, OptimizationResult
 from .cost import extract_metrics
 from .de import differential_evolution
-from .engine import (build_fixed_problem, make_population_objective,
-                     make_spacing_population_objective)
+from .engine import (build_fixed_problem, make_objective,
+                     make_population_objective,
+                     make_spacing_population_objective, make_value_and_grad,
+                     smooth_jp_uniform_from_params)
 
 Device = Union[str, torch.device]
-_GRADIENTS_LATER = (
-    "needs gradients through the matrix exponential (make_value_and_grad, "
-    "the squaring kernel as a torch.autograd.Function), which the next "
-    "slice of the port brings")
 
 
 # =============================================================================
@@ -145,12 +141,17 @@ def optimize_cz_gate(
     For bang-bang, both 5- and 7-segment variants are tried and the best is
     kept (optimize_cz_gate.py:905).
 
-    protocol="grape" (every per-segment phase a free parameter, descended
-    by adam through the differentiable solver) and grad_polish=True are not
-    ported yet and raise NotImplementedError.
+    grad_polish (default on): after DE, up to `polish_steps` normalised
+    gradient steps from the DE optimum (`make_value_and_grad`), each kept
+    only when it lowers the cost; a rejected step halves the step size.
 
-    device / dtype: where and in what complex precision the population
-    objective computes (the host plan is numpy either way).
+    protocol="grape" skips DE entirely: every per-segment phase
+    (grape_n_steps of them) is a free parameter and Adam descends the same
+    cost through the differentiable solver, starting from the literature
+    smooth-JP pulse (or from `x0`, a phase vector of that length).
+
+    device / dtype: where and in what complex precision the objectives and
+    gradients compute (the host plan is numpy either way).
 
     co_optimize_spacing appends spacing_factor as an extra DE dimension
     (optimize_cz_gate.py:1043-1051): each member's Liouvillian is
@@ -163,12 +164,6 @@ def optimize_cz_gate(
     +-30% around the phase-1 optimum.
     """
     p = protocol.lower().replace("-", "_")
-    if p in ("grape", "free_phases"):
-        raise NotImplementedError(f"protocol='grape' {_GRADIENTS_LATER}")
-    if grad_polish:
-        raise NotImplementedError(
-            f"grad_polish=True {_GRADIENTS_LATER}; pass grad_polish=False "
-            "for the differential-evolution result alone")
     if apparatus is None:
         apparatus = ApparatusConstraints()
     noise_cfg = (apparatus.make_full_noise() if include_noise
@@ -211,6 +206,17 @@ def optimize_cz_gate(
             history=list(best["history"]))
         return result
 
+    if p in ("grape", "free_phases"):
+        # x0, if given, is the initial phase vector itself (warm start
+        # from a previous GRAPE result); bounds do not apply to Adam
+        if bounds is not None:
+            raise ValueError("protocol='grape' is unconstrained Adam; "
+                             "bounds are not supported")
+        return _optimize_grape(problem, t0=t0, iters=grape_steps,
+                               lr=grape_lr, n_steps=grape_n_steps,
+                               init_phases=x0, verbose=verbose,
+                               device=device, dtype=dtype)
+
     if p in ("lp", "levine_pichler", "two_pulse"):
         key, names = "levine_pichler", _PARAM_NAMES["lp"]
         b, x = get_lp_bounds_and_x0()
@@ -235,6 +241,93 @@ def optimize_cz_gate(
         runtime_s=time.time() - t0, history=list(best["history"]))
 
 
+def grape_adam(phases: torch.Tensor, lr: float) -> torch.optim.Adam:
+    """GRAPE's optimizer over the leaf tensor `phases`: the update of
+    optax.adam(lr) (b1 0.9, b2 0.999, eps 1e-8 outside the square root)."""
+    return torch.optim.Adam([phases], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _optimize_grape(problem, t0, iters: int = 400, lr: float = 2e-3,
+                    n_steps: int = 300, init_phases=None,
+                    verbose: bool = False, device: Device = "cuda",
+                    dtype: torch.dtype = torch.complex64
+                    ) -> OptimizationResult:
+    """GRAPE mode: Adam over ALL per-segment phases through the
+    differentiable solver (engine.free_phases_uniform_from_params),
+    initialized from the literature smooth-JP pulse (or `init_phases`,
+    a warm-start phase vector of length n_steps). The cost is recorded
+    every 25 steps and at the last one."""
+    _, xs = get_smooth_jp_bounds_and_x0()
+    rdt = real_dtype(dtype)
+    if init_phases is not None:
+        phases0 = torch.as_tensor(np.asarray(init_phases, dtype=float))
+        if phases0.shape != (n_steps,):
+            raise ValueError(f"init_phases must have shape ({n_steps},); "
+                             f"got {tuple(phases0.shape)}")
+    else:
+        phases0, _, _ = smooth_jp_uniform_from_params(
+            torch.as_tensor(xs), problem, n_steps=n_steps)
+    ot, dow = float(xs[0]), float(xs[4])
+    kw = dict(omega_tau=ot, delta_over_omega=dow)
+    vg = make_value_and_grad(problem, "grape", device=device, dtype=dtype, **kw)
+    obj = make_objective(problem, "grape", device=device, dtype=dtype, **kw)
+    ph = phases0.to(device=device, dtype=rdt).clone().requires_grad_(True)
+    opt = grape_adam(ph, lr)
+    history = []
+    for it in range(iters):
+        cost, grad = vg(ph.detach())
+        ph.grad = grad
+        opt.step()
+        if it % 25 == 0 or it == iters - 1:
+            history.append(float(cost))
+            if verbose:
+                print(f"    grape iter {it:4d}  cost {float(cost):10.4f}")
+    ph = ph.detach()
+    cost, metrics = obj(ph)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    return OptimizationResult(
+        success=metrics["avg_fidelity"] > 0.9, protocol="grape",
+        best_params=ph.cpu().numpy(),
+        param_names=[f"phi_{i}" for i in range(n_steps)],
+        best_cost=float(cost), best_metrics=metrics, n_evaluations=iters,
+        runtime_s=time.time() - t0, history=history)
+
+
+def _polish(problem, protocol_key, builder_kwargs, bounds, x, cost, steps,
+            lr, device, dtype):
+    """Gradient polish from x (cost `cost`): a step of length lr * scale in
+    the direction of the scale-weighted gradient (scale = hi - lo), clipped
+    to the bounds and kept only when the cost drops; a rejected step halves
+    lr, and the polish stops when lr falls below 1e-5. Returns (best x
+    (host numpy), its cost, gradient evaluations)."""
+    obj = make_objective(problem, protocol_key, device=device, dtype=dtype,
+                         **builder_kwargs)
+    grad_fn = make_value_and_grad(problem, protocol_key, device=device,
+                                  dtype=dtype, **builder_kwargs)
+    rdt = real_dtype(dtype)
+    lo, hi = (torch.tensor([b[i] for b in bounds], dtype=rdt, device=device)
+              for i in (0, 1))
+    scale = hi - lo
+    x = torch.as_tensor(np.asarray(x, dtype=float)).to(device=device, dtype=rdt)
+    best_x, best_c = x, cost
+    nfev = 0
+    for _ in range(steps):
+        _, g = grad_fn(x)
+        nfev += 1
+        g = g * scale                       # scale-aware step
+        step = lr * scale * g / (torch.linalg.norm(g) + 1e-30)
+        x_new = torch.clamp(x - step, lo, hi)
+        c_new = float(obj(x_new)[0])
+        if c_new < best_c:
+            best_x, best_c = x_new, c_new
+            x = x_new
+        else:
+            lr *= 0.5
+            if lr < 1e-5:
+                break
+    return best_x.cpu().double().numpy(), best_c, nfev
+
+
 def _optimize_single(problem, protocol_key, builder_kwargs, bounds, x0,
                      maxiter, popsize, seed, grad_polish, polish_steps,
                      polish_lr, verbose, apparatus=None, noise_cfg=None,
@@ -242,8 +335,6 @@ def _optimize_single(problem, protocol_key, builder_kwargs, bounds, x0,
                      spacing_bounds=None, strategy="standard",
                      device: Device = "cuda",
                      dtype: torch.dtype = torch.complex64) -> Dict:
-    if grad_polish:
-        raise NotImplementedError(f"grad_polish=True {_GRADIENTS_LATER}")
     bounds = list(bounds)
     x0 = np.asarray(x0, dtype=float)
     if co_optimize_spacing:
@@ -308,6 +399,24 @@ def _optimize_single(problem, protocol_key, builder_kwargs, bounds, x0,
     nfev += de.nfev
     history += list(de.history)
 
+    if grad_polish:
+        # with spacing co-optimization the polish runs on the protocol
+        # sub-vector at the best member's (re-planned) spacing
+        if co_optimize_spacing:
+            polish_problem = pop_obj.problem_for(float(x_best[-1]))
+            polish_bounds, x_pol = bounds[:-1], x_best[:-1]
+        else:
+            polish_problem, polish_bounds, x_pol = problem, bounds, x_best
+        best_x, best_c, n_grad = _polish(
+            polish_problem, protocol_key, builder_kwargs, polish_bounds,
+            x_pol, float(cost_best), polish_steps, polish_lr, device, dtype)
+        nfev += n_grad
+        if best_c < cost_best:
+            if co_optimize_spacing:
+                best_x = np.append(best_x, x_best[-1])
+            x_best, cost_best = best_x, float(best_c)
+            history.append(cost_best)
+
     _, metrics = pop_obj(np.asarray(x_best)[None])
     metrics = {k: float(v[0]) for k, v in metrics.items()}
     if verbose:
@@ -370,13 +479,9 @@ def main(argv=None):
                     help="complex128 / float64 instead of complex64 / float32")
     args = ap.parse_args(argv)
 
-    # the gradient polish is not ported yet (see the module docstring), so
-    # the command line asks for the differential-evolution result alone
-    print("gradient polish: off (not ported yet); differential evolution only")
     res = optimize_cz_gate(args.protocol, include_noise=args.noise,
                            maxiter=args.maxiter, popsize=args.popsize,
-                           grad_polish=False, verbose=True,
-                           device=args.device,
+                           verbose=True, device=args.device,
                            dtype=torch.complex128 if args.x64
                            else torch.complex64)
     print(res)

@@ -165,6 +165,70 @@ def test_masked_squaring_kernel_all_masked(cuda, dtype, B, N):
     assert torch.equal(got, R)
 
 
+def _unitary_chain(cuda, B, N, dtype, s, seed=13):
+    """Squaring inputs whose chains stay bounded at any s: R = Taylor-16 of
+    K / 2^s with K skew-Hermitian (skew-symmetric for real dtypes), scaled
+    to ||K / 2^s||_1 = 1.8, so R^(2^s) is close to the unitary exp(K)."""
+    from noisyquantumsimulator_tpu_torch.ops.expm import _taylor16
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    X = torch.randn((B, N, N), dtype=dtype, device=cuda, generator=gen)
+    K = X - X.mH
+    As = K * (1.8 / K.abs().sum(-2).amax(-1))[:, None, None]
+    I = torch.eye(N, dtype=dtype, device=cuda).expand(As.shape)
+    G = torch.randn((B, N, N), dtype=dtype, device=cuda, generator=gen)
+    return _taylor16(As, I).contiguous(), s.to(cuda), G
+
+
+@pytest.mark.parametrize("B,N,dtype,s", [
+    (1, 81, torch.float32, [3]),                 # the real core's expm
+    (5, 81, torch.complex64, [9, 10, 11, 10, 9]),  # bang-bang's segments
+    (2, 256, torch.complex64, [3, 3]),           # the tiled route
+    (4, 81, torch.complex128, [0, 2, 5, 1]),     # mixed, one masked from trip 0
+])
+def test_masked_squaring_backward_matches_twin_autograd(cuda, B, N, dtype, s):
+    """K2's Function gradient (forward K2, trips recomputed with K2, reverse
+    loop in torch.matmul) against autograd through the plain twin; the
+    backward's recompute is one launch a trip on either route."""
+    ms = 12 if N <= 81 else 4
+    R, s, G = _unitary_chain(cuda, B, N, dtype, torch.tensor(s, dtype=torch.int32))
+    Rk = R.clone().requires_grad_(True)
+    before = fused_masked_squaring.launches
+    Y = fused_masked_squaring(Rk, s, ms)
+    assert fused_masked_squaring.launches == before + _k2_launches(N, ms)
+    got, = torch.autograd.grad((Y * G).real.sum(), Rk)
+    T = int(s.max())
+    assert fused_masked_squaring.launches == before + _k2_launches(N, ms) + T - 1
+    Rp = R.clone().requires_grad_(True)
+    ref, = torch.autograd.grad((_masked_squaring_plain(Rp, s, ms) * G).real.sum(), Rp)
+    torch.cuda.synchronize()
+    rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+    assert rel <= (1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12)
+
+
+def test_value_and_grad_cuda_matches_cpu(cuda):
+    import warnings
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    app = ApparatusConstraints()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        prob = engine.build_fixed_problem(app, app.make_full_noise(),
+                                          dtype=torch.complex128, device="cpu")
+    for protocol, x, kw in (
+            ("smooth_jp", forward.get_smooth_jp_bounds_and_x0()[1],
+             {"n_steps": 60}),
+            ("jp_bangbang", forward.get_jp_bangbang_bounds_and_x0(5)[1],
+             {"n_segments": 5})):
+        cc, gc = engine.make_value_and_grad(prob, protocol, device=cuda, **kw)(x)
+        ch, gh = engine.make_value_and_grad(prob, protocol, **kw)(x)
+        assert gc.device.type == "cuda"
+        assert abs(float(cc) - float(ch)) <= 1e-10 * abs(float(ch))
+        assert float(torch.linalg.norm(gc.cpu() - gh)) <= 1e-9 * float(
+            torch.linalg.norm(gh))
+
+
 def test_kernels_reject_unsupported_dtypes(cuda):
     R = torch.zeros((1, 4, 4), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):

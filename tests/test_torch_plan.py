@@ -105,7 +105,11 @@ from noisyquantumsimulator_tpu_torch.qec import (bp_cuda, circuits, dem, dem_dec
                                                 fast_sampler, ldpc, native)
 from noisyquantumsimulator_tpu_torch import optimize
 from noisyquantumsimulator_tpu_torch.optimize import (apparatus, cost, de, engine,
-                                                      forward, sweeps)
+                                                      forward, inverse,
+                                                      jp_legacy, sweeps)
+from noisyquantumsimulator_tpu_torch import channels
+from noisyquantumsimulator_tpu_torch.channels import (calibration, conversions,
+                                                      pauli, tomography)
 from noisyquantumsimulator_tpu_torch.utils import math
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("noisyquantumsimulator_tpu."))
@@ -118,9 +122,9 @@ print("OK")
 
 
 def test_import_hygiene_no_jax_no_build():
-    """Importing the port and every submodule (the QEC path, bench_bb and
-    the optimizer included) loads no JAX, none of the JAX package, and
-    starts no process (so neither nvcc nor g++)."""
+    """Importing the port and every submodule (the QEC path, bench_bb, the
+    optimizer and the channel bridge included) loads no JAX, none of the
+    JAX package, and starts no process (so neither nvcc nor g++)."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], capture_output=True,
                          text=True, timeout=300)
     assert "OK" in out.stdout, out.stderr[-2000:]
