@@ -14,7 +14,14 @@ solver computes batched matrix exponentials instead of integrating an ODE.
   * The squaring count s is per batch element and data-dependent; the chain
     runs as a fixed-length masked loop (`ops/expm_cuda.fused_masked_squaring`,
     CUDA kernel K2 on the card), so s never has to reach the host. Callers
-    that know their operand norms pass a tight `max_squarings`.
+    that know their operand norms pass a tight `max_squarings`
+    (`squarings_for(norm1, method)`).
+  * No silent clamp: an operand that needs more than `max_squarings`
+    squarings raises `SquaringLimitError`, naming both counts. On the CPU
+    `expm` raises at once. On the card the needed count is copied to pinned
+    host memory without a sync; the error is raised by `check_squarings()`,
+    which callers run after the sync they already make, or by the next
+    `expm` on the card once the copy has landed.
   * The polynomial products are torch.matmul, in full float32 for 32-bit
     dtypes (TF32 is off, see the package's __init__).
 """
@@ -41,13 +48,85 @@ _INVFACT = tuple(1.0 / math.factorial(k) for k in range(17))
 _SINGLE = (torch.float32, torch.complex64)
 
 
-def _scale(A: torch.Tensor, theta: float, max_squarings: int):
-    """Per-batch-element scaling: A/2^s with ||A/2^s||_1 <= theta."""
+class SquaringLimitError(RuntimeError):
+    """An expm operand needed more squarings than its `max_squarings`."""
+
+
+def squarings_for(norm1: float, method: str) -> int:
+    """The squaring count `expm` needs for an operand of 1-norm `norm1`
+    (computed on the host) under `method` ("pade13" or "taylor16"): the
+    least s with norm1 / 2^s <= theta, as `_scale` computes it."""
+    theta = {"pade13": _THETA13, "taylor16": _THETA16}[method]
+    return int(math.ceil(math.log2(max(float(norm1) / theta, 1.0))))
+
+
+def _needed_squarings(A: torch.Tensor, theta: float) -> torch.Tensor:
+    """Per-batch-element squaring count with ||A/2^s||_1 <= theta, unclamped."""
     norm1 = A.abs().sum(dim=-2).amax(dim=-1)
-    s = torch.ceil(torch.log2(torch.clamp(norm1 / theta, min=1.0)))
-    s = torch.clamp(s, 0, max_squarings).to(torch.int32)
-    scale = torch.exp2(-s.to(norm1.dtype))
+    return torch.ceil(torch.log2(torch.clamp(norm1 / theta, min=1.0)))
+
+
+def _scale(A: torch.Tensor, theta: float, max_squarings: int, need=None):
+    """Per-batch-element scaling: A/2^s with ||A/2^s||_1 <= theta, s clamped
+    to max_squarings (`expm` checks the clamp; this helper does not)."""
+    if need is None:
+        need = _needed_squarings(A, theta)
+    s = torch.clamp(need, 0, max_squarings).to(torch.int32)
+    scale = torch.exp2(-s.to(need.dtype))
     return A * scale[..., None, None].to(A.dtype), s
+
+
+# (pinned host count, event, max_squarings) of the card's unchecked expms
+_pending = []
+
+
+def _limit_error(need: int, allowed: int) -> SquaringLimitError:
+    return SquaringLimitError(
+        f"expm: an operand needs {need} squarings but max_squarings = "
+        f"{allowed}; the chain would be clamped and the exponential wrong. "
+        f"Pass max_squarings >= {need} (squarings_for(norm1, method)).")
+
+
+def _harvest(block: bool) -> None:
+    """Drop the pending counts that have landed (all of them, waiting, when
+    `block`); raise for the worst one over its limit."""
+    global _pending
+    keep, worst = [], None
+    for host, event, allowed in _pending:
+        if block:
+            event.synchronize()
+        elif not event.query():
+            keep.append((host, event, allowed))
+            continue
+        need = int(host)
+        if need > allowed and (worst is None or need - allowed > worst[0] - worst[1]):
+            worst = (need, allowed)
+    _pending = keep
+    if worst is not None:
+        raise _limit_error(*worst)
+
+
+def check_squarings() -> None:
+    """Raise SquaringLimitError if an expm on the card since the last check
+    needed more squarings than it was allowed. Waits for their counts: run
+    it after a sync the caller makes anyway, and it costs no device time."""
+    _harvest(block=True)
+
+
+def _check_limit(need: torch.Tensor, allowed: int) -> None:
+    if need.numel() == 0:
+        return
+    worst = need.detach().amax()
+    if need.device.type != "cuda":
+        if int(worst) > allowed:
+            raise _limit_error(int(worst), allowed)
+        return
+    _harvest(block=False)
+    host = torch.empty((), dtype=worst.dtype, pin_memory=True)
+    host.copy_(worst, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(need.device))
+    _pending.append((host, event, allowed))
 
 
 def _pade13(As: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
@@ -86,7 +165,10 @@ def expm(A: torch.Tensor, max_squarings: int = 12,
 
     `max_squarings` bounds the masked squaring loop; every trip costs a full
     batched product, so pass a tight bound when the operand norms are known
-    on the host (the default 12 covers ||A||_1 up to ~7.4e3 with Taylor-16).
+    on the host (`squarings_for`; the default 12 covers ||A||_1 up to ~7.4e3
+    with Taylor-16, ~2.2e4 with Pade-13). An operand that needs more raises
+    SquaringLimitError (on the card at `check_squarings()`; see the module
+    docstring).
 
     method: "pade13" | "taylor16" | "auto" (taylor16 for 32-bit dtypes,
     pade13 for 64-bit).
@@ -103,7 +185,9 @@ def expm(A: torch.Tensor, max_squarings: int = 12,
     D = A.shape[-1]
     batch = A.shape[:-2]
     I = torch.eye(D, dtype=A.dtype, device=A.device).expand(A.shape)
-    As, s = _scale(A, theta, max_squarings)
+    need = _needed_squarings(A, theta)
+    _check_limit(need, max_squarings)
+    As, s = _scale(A, theta, max_squarings, need)
     R = poly(As, I)
     R = fused_masked_squaring(R.reshape(-1, D, D).contiguous(),
                               s.reshape(-1), max_squarings)
@@ -123,4 +207,5 @@ def chained_product(U: torch.Tensor) -> torch.Tensor:
     return U[0]
 
 
-__all__ = ["expm", "chained_product"]
+__all__ = ["expm", "chained_product", "squarings_for", "check_squarings",
+           "SquaringLimitError"]

@@ -143,6 +143,11 @@ def _batched_inputs(cuda, B, N, dtype, s_kind, seed=9):
     (64, 81, torch.float64, 12, "mixed"),
     (300, 81, torch.complex64, 2, 3),        # max_squarings below every s
     (9, 256, torch.float32, 2, "mixed"),
+    (1, 540, torch.float64, 6, 6),           # readout: tiled, 16-byte copies
+    (1, 539, torch.float64, 6, 6),           # tiled, element copies
+    (1, 81, torch.float64, 12, 12),          # cooling: resident, 12 squarings
+    (7, 1600, torch.complex128, 4, 4),       # MS gate: tiled, ping-pong to out
+    (3, 1600, torch.complex128, 4, "mixed"),
 ])
 def test_masked_squaring_kernel_batched_shapes(cuda, B, N, dtype, max_sq, s_kind):
     """Both routes at the shapes the optimizer and the per-segment engine
@@ -317,3 +322,46 @@ def test_dem_decoder_cuda_matches_cpu(cuda):
     pc, bc, _ = dc._full(dets.cpu())
     assert torch.equal(bg.cpu(), bc)
     assert float((pg.cpu() == pc)[~bc].float().mean()) >= 0.999
+
+
+def test_expm_clamp_raises_at_the_check(cuda):
+    """On the card an operand that needs more squarings than it is allowed
+    raises at check_squarings() (after the caller's own sync), naming both
+    counts; the launch itself adds no sync."""
+    from noisyquantumsimulator_tpu_torch.ops import expm as texpm
+    texpm.check_squarings()
+    A = torch.zeros((2, 4, 4), dtype=torch.float64, device=cuda)
+    A[1, 0, 1] = 1.414e4
+    texpm.expm(A, method="taylor16")
+    torch.cuda.synchronize()
+    with pytest.raises(texpm.SquaringLimitError, match="needs 13 squarings.*= 12"):
+        texpm.check_squarings()
+    texpm.check_squarings()                          # raised once, then cleared
+    texpm.expm(A, max_squarings=texpm.squarings_for(1.414e4, "taylor16"),
+               method="taylor16")
+    texpm.check_squarings()
+
+
+@pytest.mark.parametrize("which", ["readout", "cooling"])
+def test_readout_and_cooling_cuda_match_cpu(cuda, which):
+    from noisyquantumsimulator_tpu_torch.gate import cooling, readout
+    sim = {"readout": readout.simulate_fluorescence_readout,
+           "cooling": cooling.simulate_sideband_cooling}[which]
+    before = fused_masked_squaring.launches
+    g, c = sim(device="cuda"), sim(device="cpu")
+    assert fused_masked_squaring.launches == before + (6 if which == "readout" else 1)
+    for k, v in vars(c).items():
+        if isinstance(v, (float, np.ndarray)):
+            assert np.abs(np.asarray(vars(g)[k]) - v).max() <= 1e-12, k
+
+
+def test_ms_gate_cuda_matches_cpu(cuda):
+    """A small MS gate (n_fock 4: (256, 256) complex128, K2 tiled) on the
+    card against the same engine on the CPU."""
+    from noisyquantumsimulator_tpu_torch.gate import ms_gate
+    before = fused_masked_squaring.launches
+    g = ms_gate.simulate_ms_gate(n_fock=4, gh_nodes=3, device="cuda")
+    assert fused_masked_squaring.launches > before
+    c = ms_gate.simulate_ms_gate(n_fock=4, gh_nodes=3, device="cpu")
+    assert np.abs(g.superop - c.superop).max() <= 1e-12
+    assert abs(g.fidelity - c.fidelity) <= 1e-12

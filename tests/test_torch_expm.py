@@ -165,3 +165,35 @@ def test_expm_of_zero_is_identity_without_squaring():
     assert int(s.max()) == 0
     got = texpm.expm(A)
     assert torch.equal(got, torch.eye(9, dtype=torch.complex64).expand(3, 9, 9))
+
+
+@pytest.mark.parametrize("method,norm1", [("taylor16", 1.414e4),
+                                          ("pade13", 3.0e4)])
+def test_expm_raises_where_the_squaring_count_would_be_clamped(method, norm1):
+    """An operand that needs 13 squarings under max_squarings = 12 (the
+    sideband-cooling generator's 1-norm, 1.414e4, under Taylor-16) raises
+    and names both counts; with the count from squarings_for it runs."""
+    A = torch.zeros((2, 4, 4), dtype=torch.float64)
+    A[1, 0, 1] = norm1
+    need = texpm.squarings_for(norm1, method)
+    assert need == 13
+    with pytest.raises(texpm.SquaringLimitError, match="needs 13 squarings.*= 12"):
+        texpm.expm(A, method=method)
+    got = texpm.expm(A, max_squarings=need, method=method)
+    ref = np.stack([scipy.linalg.expm(a) for a in A.numpy()])
+    assert _rel(got.numpy(), ref) <= 1e-12
+
+
+def test_squarings_for_matches_the_scaling():
+    """The host count equals the one the device scaling computes, norm for
+    norm, at both thresholds (powers of two of theta included)."""
+    for method, theta in (("pade13", texpm._THETA13),
+                          ("taylor16", texpm._THETA16)):
+        norms = np.concatenate([[0.0, 0.5 * theta, theta, 1.0001 * theta],
+                                theta * 2.0 ** np.arange(1, 14),
+                                np.geomspace(1e-3, 1e5, 60)])
+        A = torch.zeros((len(norms), 2, 2), dtype=torch.float64)
+        A[:, 0, 1] = torch.from_numpy(norms)
+        need = texpm._needed_squarings(A, theta)
+        assert [texpm.squarings_for(n, method) for n in norms] == \
+            [int(v) for v in need]

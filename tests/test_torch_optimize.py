@@ -340,7 +340,7 @@ def test_optimize_cz_gate_short_run(short_run):
     dict(protocol="smooth_jp", grad_polish=True),
     dict(protocol="smooth_jp"),                      # the default polishes
     dict(protocol="grape", grad_polish=False)])
-def test_gradient_paths_raise_not_implemented(kwargs):
+def test_gradient_paths_run(kwargs):
     """The gradient paths run: the calls that a forward-only optimizer would
     refuse with NotImplementedError return a result (at a small size)."""
     with warnings.catch_warnings():

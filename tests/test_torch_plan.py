@@ -111,6 +111,13 @@ from noisyquantumsimulator_tpu_torch import channels
 from noisyquantumsimulator_tpu_torch.channels import (calibration, conversions,
                                                       pauli, tomography)
 from noisyquantumsimulator_tpu_torch.utils import math
+from noisyquantumsimulator_tpu_torch.gate import (cooling, ms_gate, open_system,
+                                                 raman_gate, readout)
+from noisyquantumsimulator_tpu_torch.physics import trapped_ions
+from noisyquantumsimulator_tpu_torch import primitives
+from noisyquantumsimulator_tpu_torch.primitives import (backend, base,
+                                                       calibration_io, gates,
+                                                       ion_backend, motion)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("noisyquantumsimulator_tpu."))
 assert not bad, bad
@@ -123,7 +130,8 @@ print("OK")
 
 def test_import_hygiene_no_jax_no_build():
     """Importing the port and every submodule (the QEC path, bench_bb, the
-    optimizer and the channel bridge included) loads no JAX, none of the
+    optimizer, the channel bridge and the primitives with their gate
+    engines included) loads no JAX, none of the
     JAX package, and starts no process (so neither nvcc nor g++)."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], capture_output=True,
                          text=True, timeout=300)
