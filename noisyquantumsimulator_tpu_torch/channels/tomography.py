@@ -33,7 +33,6 @@ import torch
 
 from ..core.configs import SmoothJPSimulationInputs
 from ..gate.simulate import GatePlan, plan_cz_gate
-from ..ops.expm import check_squarings
 from ..solver.propagator import total_propagator
 from ..ops.hilbert import computational_indices
 from .conversions import (average_gate_fidelity, choi_to_chi, choi_to_kraus,
@@ -120,7 +119,6 @@ def extract_channel(plan: GatePlan, dtype: Optional[torch.dtype] = None,
         U = total_propagator(put(plan.L0), put(plan.Cp), put(plan.Cm),
                              plan.schedule, expm_method="pade13")
     U = U.cpu().numpy().astype(np.complex128)
-    check_squarings()
     dim = plan.hilbert_space_dim
     S = _subspace_superop(U, dim)
 

@@ -24,7 +24,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from ..ops.expm import check_squarings, expm, squarings_for
+from ..ops.expm import expm, squarings_for
 
 __all__ = ["SX", "SY", "SZ", "I2", "kron3", "thermal_state", "gh_nodes",
            "qubit_channel_device", "qubit_channel_host", "propagators_host",
@@ -128,5 +128,4 @@ def qubit_channel_device(Ls: np.ndarray, w: np.ndarray, tau: float,
     q = torch.diagonal(out, dim1=3, dim2=5).sum(-1)      # trace the mode
     S = torch.einsum("m,mbij->bij", wt, q).reshape(16, 16).T
     S = S.cpu().numpy()
-    check_squarings()
     return S

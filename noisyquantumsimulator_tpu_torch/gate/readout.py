@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core.constants import TWO_PI
-from ..ops.expm import check_squarings, expm, squarings_for
+from ..ops.expm import expm, squarings_for
 
 
 def _expm_engine(A: np.ndarray, device="cuda") -> np.ndarray:
@@ -71,7 +71,6 @@ def _expm_engine(A: np.ndarray, device="cuda") -> np.ndarray:
     E = expm(torch.as_tensor(A, device=torch.device(device)),
              max_squarings=ms, method="pade13")
     E = E.cpu().numpy()
-    check_squarings()
     return E
 
 

@@ -44,7 +44,6 @@ from ..physics.trap import (calculate_qubit_stark_shift, calculate_zeeman_shift,
 from ..ops.hilbert import HS3, HS4, kets_to_density, two_atom_kets
 from ..ops.lindblad import (build_all_noise_operators, drive_decomposition,
                             static_hamiltonian)
-from ..ops.expm import check_squarings
 from ..ops.phase_frame import phase_frame_generator
 from ..solver.propagator import (Schedule, evolve_rhos, real_dtype,
                                  uniform_base_propagator)
@@ -707,7 +706,6 @@ def simulate_cz_gate(simulation_inputs: SimInputs,
                   for k, v in phase_info.items()}
     order = ("00", "01", "10", "11", "++")
     rhos_np = rhos.cpu().numpy()
-    check_squarings()
     results = {k: rhos_np[i] for i, k in enumerate(order)}
 
     return GateResult(

@@ -6,28 +6,31 @@ solver computes batched matrix exponentials instead of integrating an ODE.
 
   * Two fixed-structure polynomial evaluations:
       - Pade-13 (Higham 2005): 6 matmuls + 1 linear solve, for
-        float64/complex128.
+        float64/complex128. Its theta is the backward-error bound at the
+        dtype's unit roundoff: 5.37 at 64 bits, 11.25 at 32, one squaring
+        fewer (each squaring doubles the chain's relative rounding error).
       - Taylor-16 via Paterson-Stockmeyer: 6 matmuls, no solve, for
         float32/complex64. With theta = 1.8 the truncation error is ~4e-10,
         below complex64 roundoff for the squaring chain that follows.
   * method="auto" picks Taylor-16 for 32-bit dtypes, Pade-13 for 64-bit.
   * The squaring count s is per batch element and data-dependent; the chain
-    runs as a fixed-length masked loop (`ops/expm_cuda.fused_masked_squaring`,
-    CUDA kernel K2 on the card), so s never has to reach the host. Callers
-    that know their operand norms pass a tight `max_squarings`
-    (`squarings_for(norm1, method)`).
-  * No silent clamp: an operand that needs more than `max_squarings`
-    squarings raises `SquaringLimitError`, naming both counts. On the CPU
-    `expm` raises at once. On the card the needed count is copied to pinned
-    host memory without a sync; the error is raised by `check_squarings()`,
-    which callers run after the sync they already make, or by the next
-    `expm` on the card once the copy has landed.
+    runs as a masked loop (`ops/expm_cuda.fused_masked_squaring`, CUDA
+    kernel K2 on the card), so s never has to reach the host when the
+    chain fits K2's resident route. Callers that know their operand norms
+    on the host pass `max_squarings=squarings_for(norm1, method)`; it
+    spares the tiled route a sync and sets its launches.
+  * No clamp: with no `max_squarings` every element takes the squarings it
+    needs. An operand that needs more than a given `max_squarings` raises
+    SquaringLimitError on the CPU, naming both counts; on the card (where
+    raising would cost a sync) its exponential comes back NaN, never a
+    finite wrong value.
   * The polynomial products are torch.matmul, in full float32 for 32-bit
     dtypes (TF32 is off, see the package's __init__).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -41,7 +44,10 @@ _B13 = (
     670442572800.0, 33522128640.0, 1323241920.0, 40840800.0,
     960960.0, 16380.0, 182.0, 1.0,
 )
-_THETA13 = 5.371920351148152
+_THETA13 = 5.371920351148152          # u = 2^-53 (Higham 2005)
+# the same bound, sum_k |c_k| theta^(k-1) <= u over the series of
+# log(exp(-x) r_13(x)), at u = 2^-24
+_THETA13_SINGLE = 11.248737636475399
 _THETA16 = 1.8
 _INVFACT = tuple(1.0 / math.factorial(k) for k in range(17))
 
@@ -52,12 +58,21 @@ class SquaringLimitError(RuntimeError):
     """An expm operand needed more squarings than its `max_squarings`."""
 
 
+def _theta(method: str, dtype: torch.dtype) -> float:
+    if method == "taylor16":
+        return _THETA16
+    return _THETA13_SINGLE if dtype in _SINGLE else _THETA13
+
+
 def squarings_for(norm1: float, method: str) -> int:
-    """The squaring count `expm` needs for an operand of 1-norm `norm1`
-    (computed on the host) under `method` ("pade13" or "taylor16"): the
-    least s with norm1 / 2^s <= theta, as `_scale` computes it."""
-    theta = {"pade13": _THETA13, "taylor16": _THETA16}[method]
-    return int(math.ceil(math.log2(max(float(norm1) / theta, 1.0))))
+    """The squaring count `expm` needs for a 64-bit operand of 1-norm
+    `norm1` (computed on the host) under `method` ("pade13" or
+    "taylor16"): the least s with norm1 / 2^s <= theta, as `_scale` computes
+    it. A 32-bit operand needs no more under Pade-13 (its theta is larger)."""
+    if method not in ("pade13", "taylor16"):
+        raise ValueError(f"Unknown expm method '{method}'")
+    return int(math.ceil(math.log2(max(float(norm1) / _theta(method, torch.float64),
+                                       1.0))))
 
 
 def _needed_squarings(A: torch.Tensor, theta: float) -> torch.Tensor:
@@ -66,67 +81,23 @@ def _needed_squarings(A: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.ceil(torch.log2(torch.clamp(norm1 / theta, min=1.0)))
 
 
-def _scale(A: torch.Tensor, theta: float, max_squarings: int, need=None):
-    """Per-batch-element scaling: A/2^s with ||A/2^s||_1 <= theta, s clamped
-    to max_squarings (`expm` checks the clamp; this helper does not)."""
-    if need is None:
-        need = _needed_squarings(A, theta)
-    s = torch.clamp(need, 0, max_squarings).to(torch.int32)
-    scale = torch.exp2(-s.to(need.dtype))
-    return A * scale[..., None, None].to(A.dtype), s
-
-
-# (pinned host count, event, max_squarings) of the card's unchecked expms
-_pending = []
-
-
-def _limit_error(need: int, allowed: int) -> SquaringLimitError:
-    return SquaringLimitError(
-        f"expm: an operand needs {need} squarings but max_squarings = "
-        f"{allowed}; the chain would be clamped and the exponential wrong. "
-        f"Pass max_squarings >= {need} (squarings_for(norm1, method)).")
-
-
-def _harvest(block: bool) -> None:
-    """Drop the pending counts that have landed (all of them, waiting, when
-    `block`); raise for the worst one over its limit."""
-    global _pending
-    keep, worst = [], None
-    for host, event, allowed in _pending:
-        if block:
-            event.synchronize()
-        elif not event.query():
-            keep.append((host, event, allowed))
-            continue
-        need = int(host)
-        if need > allowed and (worst is None or need - allowed > worst[0] - worst[1]):
-            worst = (need, allowed)
-    _pending = keep
-    if worst is not None:
-        raise _limit_error(*worst)
-
-
-def check_squarings() -> None:
-    """Raise SquaringLimitError if an expm on the card since the last check
-    needed more squarings than it was allowed. Waits for their counts: run
-    it after a sync the caller makes anyway, and it costs no device time."""
-    _harvest(block=True)
-
-
-def _check_limit(need: torch.Tensor, allowed: int) -> None:
-    if need.numel() == 0:
-        return
-    worst = need.detach().amax()
-    if need.device.type != "cuda":
-        if int(worst) > allowed:
-            raise _limit_error(int(worst), allowed)
-        return
-    _harvest(block=False)
-    host = torch.empty((), dtype=worst.dtype, pin_memory=True)
-    host.copy_(worst, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(need.device))
-    _pending.append((host, event, allowed))
+def _scale(A: torch.Tensor, theta: float, max_squarings=None):
+    """Per-batch-element scaling A/2^s with ||A/2^s||_1 <= theta. An element
+    needing more than `max_squarings` raises on the CPU and is scaled by NaN
+    on the card (see the module docstring)."""
+    need = _needed_squarings(A, theta)
+    s = need if max_squarings is None else torch.clamp(need, max=max_squarings)
+    scale = torch.exp2(-s)
+    if max_squarings is not None and need.numel():
+        if A.device.type == "cuda":
+            scale = torch.where(need > max_squarings, torch.nan, scale)
+        elif int(need.max()) > max_squarings:
+            raise SquaringLimitError(
+                f"expm: an operand needs {int(need.max())} squarings but "
+                f"max_squarings = {max_squarings}; the chain would be clamped "
+                f"and the exponential wrong. Pass max_squarings >= "
+                f"{int(need.max())} (squarings_for(norm1, method)) or None.")
+    return A * scale[..., None, None].to(A.dtype), s.to(torch.int32)
 
 
 def _pade13(As: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
@@ -158,17 +129,16 @@ def _taylor16(As: torch.Tensor, I: torch.Tensor) -> torch.Tensor:
     return block(0) + A4 @ R
 
 
-def expm(A: torch.Tensor, max_squarings: int = 12,
+def expm(A: torch.Tensor, max_squarings: Optional[int] = None,
          method: str = "auto") -> torch.Tensor:
     """exp(A) for A of shape (..., D, D), real or complex, batched over the
     leading dims.
 
-    `max_squarings` bounds the masked squaring loop; every trip costs a full
-    batched product, so pass a tight bound when the operand norms are known
-    on the host (`squarings_for`; the default 12 covers ||A||_1 up to ~7.4e3
-    with Taylor-16, ~2.2e4 with Pade-13). An operand that needs more raises
-    SquaringLimitError (on the card at `check_squarings()`; see the module
-    docstring).
+    `max_squarings`: None (every element takes the squarings it needs), or
+    a host bound from `squarings_for`, which spares K2's tiled route a sync
+    and sets its launches. An operand that needs more raises
+    SquaringLimitError on the CPU and comes back NaN on the card (see the
+    module docstring).
 
     method: "pade13" | "taylor16" | "auto" (taylor16 for 32-bit dtypes,
     pade13 for 64-bit).
@@ -176,18 +146,16 @@ def expm(A: torch.Tensor, max_squarings: int = 12,
     if method == "auto":
         method = "taylor16" if A.dtype in _SINGLE else "pade13"
     if method == "taylor16":
-        theta, poly = _THETA16, _taylor16
+        poly = _taylor16
     elif method == "pade13":
-        theta, poly = _THETA13, _pade13
+        poly = _pade13
     else:
         raise ValueError(f"Unknown expm method '{method}'; expected "
                          f"'pade13', 'taylor16' or 'auto'")
     D = A.shape[-1]
     batch = A.shape[:-2]
     I = torch.eye(D, dtype=A.dtype, device=A.device).expand(A.shape)
-    need = _needed_squarings(A, theta)
-    _check_limit(need, max_squarings)
-    As, s = _scale(A, theta, max_squarings, need)
+    As, s = _scale(A, _theta(method, A.dtype), max_squarings)
     R = poly(As, I)
     R = fused_masked_squaring(R.reshape(-1, D, D).contiguous(),
                               s.reshape(-1), max_squarings)
@@ -207,5 +175,4 @@ def chained_product(U: torch.Tensor) -> torch.Tensor:
     return U[0]
 
 
-__all__ = ["expm", "chained_product", "squarings_for", "check_squarings",
-           "SquaringLimitError"]
+__all__ = ["expm", "chained_product", "squarings_for", "SquaringLimitError"]

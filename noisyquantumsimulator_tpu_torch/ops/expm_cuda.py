@@ -3,7 +3,10 @@
 Counterpart of the reference's `ops/expm_pallas.py` (`fused_masked_squaring`).
 For each batch element b, R[b] is squared in place for every trip
 i < s[b] of a fixed loop of `max_squarings` trips, so a batch whose elements
-need different squaring counts runs as one fixed-shape computation.
+need different squaring counts runs as one fixed-shape computation. With
+`max_squarings=None` every element takes its s[b] squarings: the CPU and the
+resident route need no bound on the host, and the tiled route reads max(s)
+there once (a sync).
 
 `fused_masked_squaring` dispatches on the tensor's device: a CUDA tensor runs
 the hand-written kernel (`csrc/masked_squaring.cu`), a CPU tensor runs the
@@ -30,9 +33,14 @@ convention (^H is ^T for real dtypes). s gets no gradient.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import _kernels
+
+# more squarings than any finite 1-norm needs (2^1024 is past float64's range)
+_ALL = 1024
 
 # dtype -> (C entry point, type code of nqs_masked_squaring_is_resident)
 _ENTRY = {
@@ -43,19 +51,27 @@ _ENTRY = {
 }
 
 
+def _trips(s: torch.Tensor, max_squarings: Optional[int]) -> int:
+    """The loop length: max_squarings, or max(s) (read on the host) if None."""
+    if max_squarings is not None:
+        return int(max_squarings)
+    return min(int(s.max()), _ALL) if s.numel() else 0
+
+
 def _masked_squaring_plain(R: torch.Tensor, s: torch.Tensor,
-                           max_squarings: int) -> torch.Tensor:
+                           max_squarings: Optional[int]) -> torch.Tensor:
     """Plain PyTorch twin: the same masked fixed-trip loop with torch.matmul."""
     s_b = s.reshape(-1, 1, 1)
-    for i in range(max_squarings):
+    for i in range(_trips(s, max_squarings)):
         R = torch.where(s_b > i, torch.matmul(R, R), R)
     return R
 
 
 def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
-                          max_squarings: int) -> torch.Tensor:
+                          max_squarings: Optional[int] = None) -> torch.Tensor:
     """R (B, N, N) float32/float64/complex64/complex128, s (B,) int ->
-    R[b]^(2^min(s[b], max_squarings)), batch-element-wise.
+    R[b]^(2^min(s[b], max_squarings)) (R[b]^(2^s[b]) when max_squarings is
+    None), batch-element-wise.
 
     CUDA tensors: kernel K2, one launch per chain on its resident route and
     one per trip on its tiled route (counted in
@@ -67,12 +83,12 @@ def fused_masked_squaring(R: torch.Tensor, s: torch.Tensor,
     if s.shape != R.shape[:1]:
         raise ValueError(f"s must be ({R.shape[0]},), got {tuple(s.shape)}")
     if torch.is_grad_enabled() and R.requires_grad:
-        return _MaskedSquaringFn.apply(R, s, int(max_squarings))
+        return _MaskedSquaringFn.apply(R, s, max_squarings)
     return _squaring(R, s, max_squarings)
 
 
 def _squaring(R: torch.Tensor, s: torch.Tensor,
-              max_squarings: int) -> torch.Tensor:
+              max_squarings: Optional[int]) -> torch.Tensor:
     """The chain on R's device: the twin on the CPU, K2 on the card."""
     if R.device.type == "cpu":
         return _masked_squaring_plain(R, s, max_squarings)
@@ -83,15 +99,22 @@ def _squaring(R: torch.Tensor, s: torch.Tensor,
     if s.device != R.device:
         raise ValueError("R and s must be on the same device")
     B, N, _ = R.shape
-    if B == 0 or max_squarings <= 0:
+    if B == 0 or (max_squarings is not None and max_squarings <= 0):
         return R.clone()
     lib = _kernels.load()
     entry, code = _ENTRY[R.dtype]
+    with torch.cuda.device(R.device):
+        resident = bool(lib.nqs_masked_squaring_is_resident(code, N))
+    if max_squarings is None:
+        # the resident route loops to s[b] on the device; the tiled route
+        # needs its launch count on the host
+        max_squarings = _ALL if resident else _trips(s, None)
+        if max_squarings <= 0:
+            return R.clone()
     src = R.contiguous()
     out = torch.empty_like(src)
     s32 = s.to(torch.int32).contiguous()
     with torch.cuda.device(R.device):
-        resident = bool(lib.nqs_masked_squaring_is_resident(code, N))
         # the tiled route ping-pongs between two scratch buffers; trip 0 reads
         # R itself and a matrix's last squaring writes `out`
         scratch = [None if resident or max_squarings < need
@@ -120,7 +143,9 @@ class _MaskedSquaringFn(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, G):
         R, s = ctx.saved_tensors
-        T = min(int(s.max()), ctx.max_squarings) if s.numel() else 0
+        T = _trips(s, None)
+        if ctx.max_squarings is not None:
+            T = min(T, max(ctx.max_squarings, 0))
         trips = [R]
         for i in range(T - 1):
             trips.append(_squaring(trips[-1], (s > i).to(torch.int32), 1))

@@ -18,7 +18,6 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.expm import check_squarings
 
 
 @dataclass
@@ -65,7 +64,6 @@ def _energies(cost_fn, pop) -> torch.Tensor:
     generation)."""
     E, _ = cost_fn(pop.numpy())
     E = E.detach().cpu() if torch.is_tensor(E) else torch.as_tensor(np.asarray(E))
-    check_squarings()
     return E.to(torch.float64)
 
 

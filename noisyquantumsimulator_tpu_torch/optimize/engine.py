@@ -17,7 +17,12 @@ Two cores:
     matrix exponential per member, i.e. one batched expm over (P, n, n),
     then the per-member phase scan;
   * everything else (bang-bang) runs the general per-segment path: one
-    batched expm over (P * n_seg, n, n) and one ordered product.
+    batched expm over (P * n_seg, n, n) and one ordered product. Bang-bang's
+    expm is Pade-13 at every dtype: a segment is a fifth of the gate (1-norm
+    600-2500), and at complex64 the expm's rounding, doubled by each
+    squaring, is the objective's largest error; Pade-13 at its
+    single-precision theta takes 2-3 fewer squarings than Taylor-16 and holds
+    the 1e-4 fidelity tier against complex128, which Taylor-16 misses.
 Every expm ends in the masked squaring chain, kernel K2 on the card.
 
 The constants go to the device once, when an objective is made. The
@@ -194,15 +199,13 @@ def _cost_and_metrics(rhos, kets, gate_time_us):
     return cost, metrics
 
 
-def _evaluate_arrays(schedule: Schedule, L0_bare, Cd, Cp, Cm, rho0s, kets):
+def _evaluate_arrays(schedule: Schedule, L0_bare, Cd, Cp, Cm, rho0s, kets,
+                     expm_method: str = "auto"):
     """General per-segment core for a population of schedules (arrays
     (P, n_seg)): one batched expm over (P * n_seg, D^2, D^2) and one
-    ordered product. L0_bare is (D^2, D^2) or (P, D^2, D^2). The expm is
-    Pade-13 at every dtype: a bang-bang segment is a fifth of the gate and
-    needs ~10 squarings under Taylor-16, whose float32 error then misses the
-    1e-4 fidelity tier against complex128; Pade-13 takes ~2 fewer."""
+    ordered product. L0_bare is (D^2, D^2) or (P, D^2, D^2)."""
     rhos = evolve_rhos(L0_bare, Cp, Cm, schedule, rho0s, Cd=Cd,
-                       expm_method="pade13")
+                       expm_method=expm_method)
     return _cost_and_metrics(rhos, kets, schedule.dts.sum(dim=-1) * 1e6)
 
 
@@ -382,11 +385,12 @@ def _make_eval_core(problem: FixedProblem, key: str, builder_kwargs: dict,
     builder = SCHEDULE_BUILDERS[key]
     L0_bare, Cd, Cp, Cm, rho0s = (put(getattr(problem, f), dtype)
                                   for f in _COMPLEX_FIELDS)
+    method = "pade13" if builder is bangbang_schedule_from_params else "auto"
 
     def core(params, L0=None):
         sched = builder(params, problem, **builder_kwargs)
         return _evaluate_arrays(sched, L0_bare if L0 is None else L0, Cd, Cp,
-                                Cm, rho0s, kets)
+                                Cm, rho0s, kets, expm_method=method)
 
     return core
 

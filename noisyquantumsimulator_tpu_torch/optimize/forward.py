@@ -20,7 +20,6 @@ from ..core.configs import (JPSimulationInputs, LPSimulationInputs,
                             SmoothJPSimulationInputs)
 from ..physics import protocols as proto
 from ..gate.simulate import simulate_cz_gate
-from ..ops.expm import check_squarings
 from ..solver.propagator import real_dtype
 from .apparatus import ApparatusConstraints, OptimizationResult
 from .cost import extract_metrics
@@ -286,7 +285,6 @@ def _optimize_grape(problem, t0, iters: int = 400, lr: float = 2e-3,
     ph = ph.detach()
     cost, metrics = obj(ph)
     metrics = {k: float(v) for k, v in metrics.items()}
-    check_squarings()
     return OptimizationResult(
         success=metrics["avg_fidelity"] > 0.9, protocol="grape",
         best_params=ph.cpu().numpy(),
@@ -320,7 +318,6 @@ def _polish(problem, protocol_key, builder_kwargs, bounds, x, cost, steps,
         step = lr * scale * g / (torch.linalg.norm(g) + 1e-30)
         x_new = torch.clamp(x - step, lo, hi)
         c_new = float(obj(x_new)[0])
-        check_squarings()
         if c_new < best_c:
             best_x, best_c = x_new, c_new
             x = x_new
@@ -422,7 +419,6 @@ def _optimize_single(problem, protocol_key, builder_kwargs, bounds, x0,
 
     _, metrics = pop_obj(np.asarray(x_best)[None])
     metrics = {k: float(v[0]) for k, v in metrics.items()}
-    check_squarings()
     if verbose:
         print(f"  [{protocol_key}{builder_kwargs or ''}] cost={cost_best:.4f} "
               f"F={metrics['avg_fidelity']:.6f} nfev={nfev}")

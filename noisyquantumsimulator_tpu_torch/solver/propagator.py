@@ -73,7 +73,8 @@ def segment_liouvillians(L0, Cp, Cm, schedule: Schedule, Cd=None):
 
 
 def total_propagator(L0, Cp, Cm, schedule: Schedule, Cd=None,
-                     max_squarings: int = 12, expm_method: str = "auto"):
+                     max_squarings: Optional[int] = None,
+                     expm_method: str = "auto"):
     """exp(L_n dt_n) ... exp(L_1 dt_1) as one (D^2, D^2) matrix, or
     (P, D^2, D^2) for a population of schedules."""
     A = segment_liouvillians(L0, Cp, Cm, schedule, Cd)
@@ -82,7 +83,8 @@ def total_propagator(L0, Cp, Cm, schedule: Schedule, Cd=None,
 
 
 def evolve_rhos(L0, Cp, Cm, schedule: Schedule, rho0s, Cd=None,
-                max_squarings: int = 12, expm_method: str = "auto"):
+                max_squarings: Optional[int] = None,
+                expm_method: str = "auto"):
     """Evolve a batch of density matrices through the schedule.
     rho0s: (B, D, D) -> (B, D, D); (P, B, D, D) for a population of
     schedules, every member from the same rho0s."""
@@ -98,7 +100,7 @@ def evolve_rhos(L0, Cp, Cm, schedule: Schedule, rho0s, Cd=None,
 # --------------------------------------------------------------------------
 
 def uniform_base_propagator(L0, Cp, Cm, amp: float, dt: float,
-                            max_squarings: int = 12,
+                            max_squarings: Optional[int] = None,
                             expm_method: str = "auto"):
     """U_base = exp((L0 + amp (C+ + C-)) dt): the single segment propagator
     every phase-rotated segment of a uniform schedule shares."""

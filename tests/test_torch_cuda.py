@@ -324,22 +324,32 @@ def test_dem_decoder_cuda_matches_cpu(cuda):
     assert float((pg.cpu() == pc)[~bc].float().mean()) >= 0.999
 
 
-def test_expm_clamp_raises_at_the_check(cuda):
-    """On the card an operand that needs more squarings than it is allowed
-    raises at check_squarings() (after the caller's own sync), naming both
-    counts; the launch itself adds no sync."""
+def test_expm_takes_every_squaring_and_marks_an_overrun_on_the_card(cuda):
+    """With no max_squarings every element takes the squarings it needs: 13
+    in one launch on the resident route, max(s) launches on the tiled one.
+    An operand over a given limit comes back NaN, not a finite wrong value
+    (raising would cost a sync)."""
     from noisyquantumsimulator_tpu_torch.ops import expm as texpm
-    texpm.check_squarings()
     A = torch.zeros((2, 4, 4), dtype=torch.float64, device=cuda)
     A[1, 0, 1] = 1.414e4
-    texpm.expm(A, method="taylor16")
-    torch.cuda.synchronize()
-    with pytest.raises(texpm.SquaringLimitError, match="needs 13 squarings.*= 12"):
-        texpm.check_squarings()
-    texpm.check_squarings()                          # raised once, then cleared
-    texpm.expm(A, max_squarings=texpm.squarings_for(1.414e4, "taylor16"),
-               method="taylor16")
-    texpm.check_squarings()
+    ref = texpm.expm(A.cpu(), method="taylor16")
+    before = fused_masked_squaring.launches
+    got = texpm.expm(A, method="taylor16")
+    assert fused_masked_squaring.launches == before + 1
+    assert torch.allclose(got.cpu(), ref, rtol=1e-12, atol=0.0)
+    over = texpm.expm(A, max_squarings=12, method="taylor16")
+    assert bool(torch.isnan(over[1]).all())
+    assert torch.equal(over[0].cpu(), ref[0])
+    rng = np.random.default_rng(13)
+    K = torch.as_tensor(rng.standard_normal((2, 256, 256)), device=cuda)
+    K = (K - K.mT) * torch.tensor([0.05, 0.6], dtype=K.dtype,
+                                  device=cuda)[:, None, None]
+    need = texpm._needed_squarings(K, texpm._THETA13)
+    before = fused_masked_squaring.launches
+    got = texpm.expm(K, method="pade13")
+    assert fused_masked_squaring.launches == before + int(need.max())
+    assert torch.allclose(got.cpu(), texpm.expm(K.cpu(), method="pade13"),
+                          rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("which", ["readout", "cooling"])

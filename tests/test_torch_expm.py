@@ -172,16 +172,40 @@ def test_expm_of_zero_is_identity_without_squaring():
 def test_expm_raises_where_the_squaring_count_would_be_clamped(method, norm1):
     """An operand that needs 13 squarings under max_squarings = 12 (the
     sideband-cooling generator's 1-norm, 1.414e4, under Taylor-16) raises
-    and names both counts; with the count from squarings_for it runs."""
+    and names both counts; with the count from squarings_for, or with no
+    max_squarings (every squaring it needs), it runs."""
     A = torch.zeros((2, 4, 4), dtype=torch.float64)
     A[1, 0, 1] = norm1
     need = texpm.squarings_for(norm1, method)
     assert need == 13
     with pytest.raises(texpm.SquaringLimitError, match="needs 13 squarings.*= 12"):
-        texpm.expm(A, method=method)
-    got = texpm.expm(A, max_squarings=need, method=method)
+        texpm.expm(A, max_squarings=12, method=method)
     ref = np.stack([scipy.linalg.expm(a) for a in A.numpy()])
-    assert _rel(got.numpy(), ref) <= 1e-12
+    for limit in (need, None):
+        got = texpm.expm(A, max_squarings=limit, method=method)
+        assert _rel(got.numpy(), ref) <= 1e-12
+
+
+def test_pade13_at_32_bits_holds_single_precision_at_its_theta():
+    """Pade-13 at complex64 scales to its single-precision theta (11.25, one
+    squaring fewer than at 64 bits); just under it, and at 2-8 times it,
+    the result is within the complex64 tier (1e-5 relative) of scipy's
+    complex128 expm."""
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((5, 16, 16)) + 1j * rng.standard_normal((5, 16, 16))
+    A /= np.abs(A).sum(axis=-2).max(axis=-1)[:, None, None]
+    A *= (0.999 * texpm._THETA13_SINGLE
+          * np.array([1.0, 1.0, 2.0, 4.0, 8.0]))[:, None, None]
+    A[1] = 1j * (A[1] + A[1].conj().T) / 2          # skew-Hermitian: unitary
+    A64 = torch.from_numpy(A.astype(np.complex64))
+    As, s = texpm._scale(A64, texpm._THETA13_SINGLE)
+    assert s.tolist()[:1] + s.tolist()[2:] == [0, 1, 2, 3]
+    got = texpm.expm(A64, method="pade13").numpy()
+    R = texpm._pade13(As, torch.eye(16, dtype=torch.complex64).expand(As.shape))
+    assert np.array_equal(got[0], R[0].numpy())      # no squaring at 0.999 theta
+    ref = np.stack([scipy.linalg.expm(a) for a in A64.numpy().astype(np.complex128)])
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= 1e-5
 
 
 def test_squarings_for_matches_the_scaling():
