@@ -10,6 +10,7 @@ backends (neutral atoms and trapped ions).
     python3 chip_smoke.py --only gradients   (phases 1, 2 and 11)
     python3 chip_smoke.py --only channel     (phases 1, 2 and 12)
     python3 chip_smoke.py --only primitives  (phases 1, 2 and 13)
+    python3 chip_smoke.py --only surface     (phases 1, 2 and 14)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -91,6 +92,19 @@ each; any failure raises and the script exits non-zero:
               (1, 540) and (1, 539) float64 s = 6 (tiled: 16-byte and element
               copies), (1, 81) float64 s = 12 (resident), (7, 1600) complex128
               s = 4 (tiled), with their bounds
+ 14. surface    the surface-code memory path (bench_qec, the reference's
+              `bench.py --qec` records qec_d7 and qec_d9): the fast sampler's
+              detector rates at d = 7 over one 2^20-shot block against the
+              DEM's analytic rates (5 sigma); at each distance, 4096 shots
+              decoded on the card against the native whole-shot exact DP
+              (mode 1) on every shot the card certifies, and bit-identical
+              to the port's CPU path (predictions and flags); then the
+              records: sample shots/s (median of timed calls), end-to-end
+              sample + exact decode + host escalation shots/s, p_L with its
+              Wilson CI (must overlap BENCH_CANON.json's), escalated fraction,
+              peak device memory, the idle share of one rep and its top
+              device ops. No kernel of the port runs here: the device work is
+              torch ops, as the reference's is XLA
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -116,7 +130,6 @@ PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-TRACE_DIR = "noisyquantumsimulator_tpu_torch/_build/traces"   # git-ignored
 K1_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/phase_scan.cu"
 K1_REPLACES = "noisyquantumsimulator_tpu/solver/scan_pallas.py:71"
 K2_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/masked_squaring.cu"
@@ -483,42 +496,10 @@ def phase_gate():
 
 
 def _profile_window(fn, tag, n_calls=3):
-    """torch.profiler over `n_calls` calls of fn after one warm-up call.
-    Returns (wall seconds per call, the device's idle share within the
-    kernels' span = 1 - union of kernel, memcpy and memset intervals / span,
-    {kernel name: device microseconds}, trace path); the idle share and the
-    dict are None when the trace holds no device events."""
-    import os
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n_calls
-    os.makedirs(TRACE_DIR, exist_ok=True)
-    path = os.path.join(TRACE_DIR, f"{tag}_trace.json")
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        evs = json.load(f)
-    evs = evs["traceEvents"] if isinstance(evs, dict) else evs
-    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
-                  e.get("name", "")) for e in evs
-                 if e.get("ph") == "X" and e.get("cat") in
-                 ("kernel", "gpu_memcpy", "gpu_memset"))
-    if not dev:
-        return wall, None, None, path
-    busy, end = 0.0, dev[0][0]
-    by_name = {}
-    for a, b, name in dev:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-        by_name[name] = by_name.get(name, 0.0) + (b - a)
-    span = end - dev[0][0]
-    return wall, 1.0 - busy / span, by_name, path
+    """utils.profiling.profile_window: (wall s per call, idle share, {kernel
+    name: device us}, trace path) over `n_calls` calls after a warm-up."""
+    from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
+    return profile_window(fn, tag, n_calls)
 
 
 def _share(by_name, *needles):
@@ -1741,15 +1722,144 @@ def phase_primitives(launch_ms):
     return entries
 
 
+# phase 14: the reference's qec records and the reps the phase runs of each
+# (its suite runs 6 and 27; at least 3 and 8 here)
+QEC_RECORDS = (("qec_d7", 7, 1 << 20, 6), ("qec_d9", 9, 1 << 18, 27))
+QEC_DECODE_SHOTS = 1 << 17
+QEC_CHECK_SHOTS = 4096
+
+
+def _dem_detector_rates(circuit):
+    """Each detector's analytic flip rate (1 - prod(1 - 2 p_i)) / 2 over the
+    merged DEM mechanisms that flip it (independent mechanisms)."""
+    from noisyquantumsimulator_tpu_torch.qec.dem import build_dem
+    dem = build_dem(circuit).merged()
+    q = np.ones(circuit.n_detectors)
+    for m in dem.mechanisms:
+        for det in m.detectors:
+            q[det] *= 1.0 - 2.0 * m.probability
+    return (1.0 - q) / 2.0, len(dem.mechanisms)
+
+
+def _qec_checks(tag, d, rounds, gen):
+    """Phase 14's decoder checks at one distance, on QEC_CHECK_SHOTS shots:
+    the card's decode against the native whole-shot exact DP on every shot
+    the card certifies, and against the port's CPU path bit for bit (the
+    record's decoder, built for each device)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch import bench_qec
+
+    wg, wc = (bench_qec.build_qec_workload(d, rounds, 1e-3, QEC_DECODE_SHOTS,
+                                           device) for device in ("cuda", "cpu"))
+    dets = wg.sampler(gen)["detectors"][:QEC_CHECK_SHOTS]
+    pg, fg = bench_qec.device_decode(wg.decoder, dets, wg.chunk)
+    t0 = time.perf_counter()
+    pc, fc = bench_qec.device_decode(wc.decoder, dets.cpu(), wc.chunk)
+    cpu_s = time.perf_counter() - t0
+    pg, fg = pg.cpu(), fg.cpu()
+    same_p, same_f = bool(torch.equal(pg, pc)), bool(torch.equal(fg, fc))
+    say("14 surface", f"{tag}: {QEC_CHECK_SHOTS} shots, card vs the port's CPU "
+        f"path (CPU {cpu_s:.2f} s): predictions identical {same_p} "
+        f"({int((pg != pc).sum())} differ), flags identical {same_f} "
+        f"({int(fg.sum())} flagged on the card, {int(fc.sum())} on the CPU)")
+    require(same_p and same_f, f"{tag}: the card's decode equals the CPU path's")
+
+    # certified: the tiered DP decoded every defect; the cluster decoder
+    # raised no flag
+    cert = (wg.decoder.exact_rows(dets).cpu() if d <= 7 else ~fg).numpy()
+    t0 = time.perf_counter()
+    o = wg.native.decode_batch_ex(dets.cpu().numpy(), mode=1)
+    nat_s = time.perf_counter() - t0
+    both = cert & o["exact"]
+    diff = int(((pg.numpy() & 1) != (o["pred"] & 1))[both].sum())
+    say("14 surface", f"{tag}: card vs the native whole-shot exact DP (mode 1, "
+        f"{nat_s:.2f} s): {int(both.sum())} shots certified by both, "
+        f"{diff} differ; {int((~cert).sum())} shots not certified by the card, "
+        f"{int((~o['exact']).sum())} past the oracle's 22 defects; mean "
+        f"defects {float(o['n_defects'].mean()):.3f}, max {int(o['n_defects'].max())}")
+    require(diff == 0, f"{tag}: the card's decode equals the exact DP on "
+            "every certified shot")
+
+
+def phase_surface():
+    """Phase 14: the surface-code memory path at the reference's qec_d7 and
+    qec_d9 sizes (bench_qec)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch import bench_qec
+    from noisyquantumsimulator_tpu_torch.qec import native
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import (
+        build_fast_sampler)
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import memory_z_circuit
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.build()
+    say("14 surface", f"native library {native.library_path().name} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    with open("BENCH_CANON.json") as f:
+        canon = json.load(f)["records"]
+
+    def gen(seed):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        return g
+
+    # --- the sampler against the DEM's analytic detector rates, d = 7
+    circuit = memory_z_circuit(7, 7, p=1e-3)
+    rate, n_mech = _dem_detector_rates(circuit)
+    N = 1 << 20
+    sampler = build_fast_sampler(circuit, N, "cuda")
+    counts = sampler(gen(SEED + 14))["detectors"].sum(dim=0, dtype=torch.int64)
+    emp = counts.cpu().numpy() / N
+    z = (emp - rate) / np.sqrt(rate * (1 - rate) / N)
+    say("14 surface", f"qec_d7 sampler: {circuit.n_detectors} detectors, "
+        f"{len(sampler.faults)} fault bits, {n_mech} DEM mechanisms; "
+        f"{N} shots: detector rates {emp.min():.5f}..{emp.max():.5f}, "
+        f"max |z| vs the DEM's analytic rates {np.abs(z).max():.2f} (tol 5)")
+    require(np.abs(z).max() < 5.0, "sampler rates within 5 sigma of the DEM")
+    del sampler, counts
+    torch.cuda.empty_cache()
+
+    # --- decoder checks at both distances
+    for tag, d, _, _ in QEC_RECORDS:
+        _qec_checks(tag, d, d, gen(SEED + 140 + d))
+        torch.cuda.empty_cache()
+
+    # --- the records
+    for tag, d, shots, reps in QEC_RECORDS:
+        rec = bench_qec.main_qec(d=d, rounds=d, p=1e-3, shots=shots,
+                                 decode_shots=QEC_DECODE_SHOTS,
+                                 reps_decode=reps, seed=0, device="cuda")
+        torch.cuda.empty_cache()
+        print(json.dumps(rec, separators=(",", ":")), flush=True)
+        lo, hi = rec["e2e_p_logical_ci95"]
+        rlo, rhi = canon[tag]["e2e_p_logical_ci95"]
+        say("14 surface", f"{tag}: sample {rec['value']:.1f} shots/s "
+            f"({rec['shots_per_call']} a call, median of {rec['sample_calls']});"
+            f" e2e {rec['e2e_sample_decode_shots_per_sec']:.1f} shots/s over "
+            f"{reps} reps of {QEC_DECODE_SHOTS}; p_L {rec['e2e_p_logical_shot']:.4e}"
+            f" ({rec['e2e_n_errors']} errors in {rec['e2e_n_decoded']}), 95% CI "
+            f"[{lo:.4e}, {hi:.4e}] vs the reference's [{rlo:.4e}, {rhi:.4e}]; "
+            f"escalated {rec['e2e_escalated_fraction']:.6f} (cap "
+            f"{rec['e2e_fetch_cap']} rows a rep); peak device memory "
+            f"{rec['peak_device_gib']} GiB; idle share of one rep "
+            f"{rec['idle_share_one_rep']}; top device ops {rec['top_device_ops_us']}")
+        require(lo <= rhi and rlo <= hi, f"{tag}: p_L CI overlaps the reference's")
+        require(rec["e2e_escalated_fraction"] * QEC_DECODE_SHOTS
+                <= rec["e2e_fetch_cap"], f"{tag}: escalation under the fetch cap")
+    say("14 surface", f"phase wall time {time.perf_counter() - t_phase:.1f} s "
+        f"(reps: {', '.join(f'{t} {r}' for t, _, _, r in QEC_RECORDS)})")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
-                                       "primitives"),
+                                       "primitives", "surface"),
                     help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
-                         "(channel) or 1, 2 and 13 (primitives) only, and "
-                         "print no result line")
+                         "(channel), 1, 2 and 13 (primitives) or 1, 2 and 14 "
+                         "(surface) only, and print no result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -1770,6 +1880,9 @@ def main(argv=None) -> int:
     if args.only == "primitives":
         phase_primitives(launch_ms)
         return 0
+    if args.only == "surface":
+        phase_surface()
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -1787,6 +1900,7 @@ def main(argv=None) -> int:
     kernels.append(phase_gradients(launch_ms))
     kernels.append(phase_channel(launch_ms)[1])
     kernels.extend(phase_primitives(launch_ms))
+    phase_surface()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -1,19 +1,41 @@
-"""QEC layer of the port: the BB-LDPC circuit-level memory path.
+"""QEC layer of the port: the BB-LDPC and surface-code memory paths.
 
-  circuits      stabilizer-circuit IR (host numpy)
-  dem           detector error model by frame propagation (host numpy)
-  fast_sampler  one-matmul detector sampler (torch, explicit generator)
-  ldpc          BB codes, min-sum BP (dense, edge-list, slot layout), OSD-0
-  bp_cuda       kernel K3: the slot-layout check-node update, and its twin
-  dem_decoder   tiered BP on the DEM + host OSD-0
-  native        the C++ OSD-0 library (built with the host compiler)
+  circuits         stabilizer-circuit IR (host numpy)
+  dem              detector error model by frame propagation (host numpy)
+  fast_sampler     one-matmul detector sampler (torch, explicit generator)
+  pauli_frame      per-instruction Pauli-frame sampler (torch)
+  surface_code     rotated surface-code layouts and memory circuits (host)
+  decoders         matching graph (APSP), batched greedy, host union-find
+  exact_matcher    exact matching by a bitmask DP on the device
+  window_matcher   sliding-window exact matching on the device
+  cluster_matcher  exact matching by cluster decomposition on the device
+  memory           run_memory: sample -> decode -> logical error rate
+  erasure          heralded-erasure peeling + matching
+  ldpc             BB codes, min-sum BP (dense, edge-list, slot layout), OSD-0
+  bp_cuda          kernel K3: the slot-layout check-node update, and its twin
+  dem_decoder      tiered BP on the DEM + host OSD-0
+  native           the C++ OSD-0, exact matcher and erasure peeler (built
+                   with the host compiler)
 
-The reference's other decoders, samplers and surface-code layers are not
-ported yet; this package exports only what the port has.
+Class names drop the reference's `TPU` suffix: ExactMatcherTPU ->
+ExactMatcher, HybridMatcherTPU -> HybridMatcher, TieredMatcherTPU ->
+TieredMatcher, WindowMatcherTPU -> WindowMatcher, ClusterMatcherTPU ->
+ClusterMatcher. Function names are the reference's. Not ported yet:
+color_code, topology, ldpc_layout, lattice_surgery, nn_decoder, scheduler,
+compiler, executor.
 """
-from . import (bp_cuda, circuits, dem, dem_decoder, fast_sampler,  # noqa: F401
-               ldpc, native)
+from . import (bp_cuda, circuits, cluster_matcher, decoders, dem,  # noqa: F401
+               dem_decoder, erasure, exact_matcher, fast_sampler, ldpc,
+               memory, native, pauli_frame, surface_code, window_matcher)
 from .dem_decoder import DemBPDecoder, decoder_from_numpy  # noqa: F401
 from .fast_sampler import build_fast_sampler, sample_circuit_fast  # noqa: F401
 from .ldpc import (bb_memory_circuit, gross_code,  # noqa: F401
                    run_bb_circuit_memory, small_bb_code)
+from .erasure import run_erasure_memory  # noqa: F401
+from .memory import run_memory, MemoryResult  # noqa: F401
+from .surface_code import memory_z_circuit, build_layout, code_metrics  # noqa: F401
+from .exact_matcher import (exact_matcher_for_circuit,  # noqa: F401
+                            tiered_matcher_for_circuit)
+from .window_matcher import (window_matcher_for_circuit,  # noqa: F401
+                             escalating_matcher_for_circuit)
+from .cluster_matcher import cluster_matcher_for_circuit  # noqa: F401

@@ -9,7 +9,10 @@ Tolerances: float32 1e-4 and complex64 1e-5 relative to max|twin| (the
 kernels and the library products sum in different orders; K1's float32
 product is the 3xTF32 split on the tensor cores); float64 and
 complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
-at float32 and bfloat16 (one rounding of the same exact product).
+at float32 and bfloat16 (one rounding of the same exact product). The
+surface-code matchers (plain torch ops, no kernel of their own) are
+bit-identical on the card and on the CPU; the fast sampler's detector rates
+lie within 5 binomial sigma of the DEM's analytic rates.
 """
 import numpy as np
 import pytest
@@ -375,3 +378,108 @@ def test_ms_gate_cuda_matches_cpu(cuda):
     c = ms_gate.simulate_ms_gate(n_fock=4, gh_nodes=3, device="cpu")
     assert np.abs(g.superop - c.superop).max() <= 1e-12
     assert abs(g.fidelity - c.fidelity) <= 1e-12
+
+
+# --- the surface-code matchers: the card against the port's CPU path -------
+
+@pytest.fixture(scope="module")
+def surface_d5():
+    """A d = 5, 5-round memory circuit at p = 4e-3, its DEM edges and 2048
+    shots of detectors from the port's sampler on the CPU."""
+    from noisyquantumsimulator_tpu_torch.qec.dem import build_dem, dem_to_edges
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import (
+        build_fast_sampler)
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import (
+        memory_detector_rounds, memory_z_circuit)
+    circuit = memory_z_circuit(5, 5, p=4e-3)
+    g = torch.Generator()
+    g.manual_seed(7)
+    dets = build_fast_sampler(circuit, 2048, "cpu")(g)["detectors"]
+    return dict(circuit=circuit, edges=dem_to_edges(build_dem(circuit)),
+                dets=dets, rounds=memory_detector_rounds(5, 5))
+
+
+def _matcher(kind, s, device):
+    from noisyquantumsimulator_tpu_torch.qec import (cluster_matcher as cm,
+                                                     decoders, exact_matcher
+                                                     as em, window_matcher as wm)
+    n = s["circuit"].n_detectors
+    e, p, o = s["edges"]
+    if kind == "greedy":
+        return decoders.MatchingDecoder(n, e, p, o, max_defects=16,
+                                        device=device)
+    if kind == "exact":
+        return em.ExactMatcher(n, e, p, o, max_defects=8, chunk=512,
+                               device=device)
+    if kind == "hybrid":
+        return em.HybridMatcher(n, e, p, o, max_defects=6, greedy_defects=16,
+                                chunk=512, device=device)
+    if kind == "tiered":
+        return em.TieredMatcher(n, e, p, o, k_light=4, k_heavy=10, chunk=512,
+                                heavy_capacity=48, device=device)
+    if kind == "window":
+        return wm.WindowMatcher(n, e, p, o, s["rounds"], window_rounds=3,
+                                commit_rounds=1, max_defects=8, k_light=4,
+                                heavy_capacity=64, greedy_fallback=12,
+                                greedy_capacity=32, chunk=512, device=device)
+    return cm.ClusterMatcher(n, e, p, o, max_slots=12, chunk=512,
+                             tiers=((3, 4, 4, 0.05), (5, 8, 8, 0.02)),
+                             cand_per_shot=3, device=device)
+
+
+@pytest.mark.parametrize("kind", ["greedy", "exact", "hybrid", "tiered",
+                                  "window", "cluster"])
+def test_surface_matchers_cuda_match_cpu(cuda, surface_d5, kind):
+    g, c = _matcher(kind, surface_d5, cuda), _matcher(kind, surface_d5, "cpu")
+    dets = surface_d5["dets"]
+    for s0 in range(0, dets.shape[0], 512):
+        rows = dets[s0:s0 + 512]
+        if kind in ("window", "cluster"):
+            (pg, fg), (pc, fc) = (g.decode_device_with_overflow(rows.to(cuda)),
+                                  c.decode_device_with_overflow(rows))
+            assert torch.equal(fg.cpu(), fc)
+        else:
+            pg, pc = g.decode_device(rows.to(cuda)), c.decode_device(rows)
+        assert torch.equal(pg.cpu(), pc)
+    if kind == "exact":
+        for a, b in zip(g.match_device(dets.to(cuda)), c.match_device(dets)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_stable_heavy_selection_with_ties_cuda(cuda, surface_d5):
+    """Tied defect counts: the heavy rows are the most-defect rows, ties to
+    the lower index, on the card as on the CPU (and as numpy's stable
+    sort); a starved capacity leaves the same rows truncated."""
+    from noisyquantumsimulator_tpu_torch.qec.decoders import stable_top_rows
+    rng = np.random.default_rng(5)
+    nd = rng.integers(0, 4, 5000)
+    want = np.argsort(-nd, kind="stable")[:700]
+    got = stable_top_rows(torch.as_tensor(nd, device=cuda), 700).cpu().numpy()
+    assert np.array_equal(got, want)
+    dets = surface_d5["dets"]
+    g, c = _matcher("tiered", surface_d5, cuda), _matcher("tiered", surface_d5,
+                                                          "cpu")
+    assert torch.equal(g.exact_rows(dets.to(cuda)).cpu(), c.exact_rows(dets))
+    assert not bool(c.exact_rows(dets).all())       # the capacity binds
+    assert torch.equal(g.decode_device(dets.to(cuda)).cpu(),
+                       c.decode_device(dets))
+
+
+def test_surface_sampler_rates_match_dem_cuda(cuda):
+    from noisyquantumsimulator_tpu_torch.qec.dem import build_dem
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import (
+        build_fast_sampler)
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import (
+        memory_z_circuit)
+    circuit = memory_z_circuit(5, 5, p=2e-3)
+    q = np.ones(circuit.n_detectors)
+    for m in build_dem(circuit).merged().mechanisms:
+        for det in m.detectors:
+            q[det] *= 1.0 - 2.0 * m.probability
+    rate = (1.0 - q) / 2.0
+    N = 1 << 18
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    emp = (build_fast_sampler(circuit, N, cuda)(g)["detectors"]
+           .sum(dim=0, dtype=torch.int64).cpu().numpy() / N)
+    assert (np.abs(emp - rate) / np.sqrt(rate * (1 - rate) / N)).max() <= 5.0
