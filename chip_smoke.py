@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch / CUDA port's main paths once on one GPU: the CZ gate
 engine, the BB-LDPC sample + BP decode path, the optimizer's forward and
-gradient paths, the channel / calibration bridge and the Layer-1 primitive
-backends (neutral atoms and trapped ions).
+gradient paths, the channel / calibration bridge, the Layer-1 primitive
+backends (neutral atoms, trapped ions, cavity QED), the surface-code memory
+path and the architecture loop (topology -> compiler -> scheduler ->
+executor, and the exact circuit simulators).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
@@ -11,6 +13,7 @@ backends (neutral atoms and trapped ions).
     python3 chip_smoke.py --only channel     (phases 1, 2 and 12)
     python3 chip_smoke.py --only primitives  (phases 1, 2 and 13)
     python3 chip_smoke.py --only surface     (phases 1, 2 and 14)
+    python3 chip_smoke.py --only architecture  (phases 1, 2, 15 and 16)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -105,6 +108,28 @@ each; any failure raises and the script exits non-zero:
               peak device memory, the idle share of one rep and its top
               device ops. No kernel of the port runs here: the device work is
               torch ops, as the reference's is XLA
+ 15. cavity     simulate_cavity_gate(n_fock=6) at the two regimes of the
+              shipped cavity records (7 noise cases, one (1, 576, 576)
+              complex128 expm each, K2 tiled) against those records and the
+              host scipy engine (superop, F and budget to 1e-10): ms per call,
+              K2 launches, peak device memory; every case's max_squarings
+              against what the card needs; CavityBackend from the default
+              store and from an empty temporary store (its in-process record,
+              n_fock = 4, against the same on the CPU to 1e-12); K2 against
+              its twin (1e-12 relative) and matrix_power at (1, 576) and
+              (1, 256) complex128, with their bounds
+ 16. architecture  the d = 5 rotated-code extraction circuit (49 qubits, 520
+              gates, 5 rounds) compiled onto a 9 x 9 grid for neutral atoms,
+              trapped ions and cavity QED (native ops, SWAPs and makespan
+              equal to the reference's); execute() at 2^20 shots with
+              NeutralAtomBackend, IonBackend and CavityBackend (both regimes):
+              seconds, device events and idle share of a call, every qubit's
+              flip and phase rate within 5 sigma of its exact marginal; the
+              cavity rows of the study's d = 3 memory experiment (p_L CI
+              overlaps the study's); DensityMatrixSimulator on an 11-qubit
+              and TrajectorySimulator (T = 16384) on a 13-qubit repetition
+              code against the exact 2p(1 - p). Only K2 runs here among the
+              port's kernels (phase 15); the rest is torch ops and host code
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -499,7 +524,7 @@ def _profile_window(fn, tag, n_calls=3):
     """utils.profiling.profile_window: (wall s per call, idle share, {kernel
     name: device us}, trace path) over `n_calls` calls after a warm-up."""
     from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
-    return profile_window(fn, tag, n_calls)
+    return profile_window(fn, tag, n_calls)[:4]
 
 
 def _share(by_name, *needles):
@@ -1487,7 +1512,7 @@ def _timed(fn, n=3):
     return out, statistics.median(times), times, fused_masked_squaring.launches
 
 
-def _k2_at(R, s, ms, what, launch_ms, reps):
+def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives"):
     """K2 against its twin (1e-12 relative at 64 bits) and matrix_power at
     squaring inputs R, s; times (not counted) and the bound."""
     import torch
@@ -1511,7 +1536,7 @@ def _k2_at(R, s, ms, what, launch_ms, reps):
         lib_ms = min(_cuda_ms(lib_fn, reps), _cuda_ms(lib_fn, reps))
     bound, binds, terms = _k2_bound_ms(R, s, ms, launch_ms)
     by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
-    say("13 primitives", f"K2 {what}, max_squarings {ms}, s in [{int(s.min())}, "
+    say(phase, f"K2 {what}, max_squarings {ms}, s in [{int(s.min())}, "
         f"{int(s.max())}]: max|kernel - twin| = {err:.3e} (max|ref| {scale:.3e}, "
         f"tol 1e-12 relative); K2 {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
         f"matrix_power {'none (s differs)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
@@ -1851,15 +1876,408 @@ def phase_surface():
         f"(reps: {', '.join(f'{t} {r}' for t, _, _, r in QEC_RECORDS)})")
 
 
+# The two regimes of the shipped cavity records, as the study that made them
+# defines them (examples/cavity_gate_engine_study.py:36-46, which imports the
+# JAX package); the records store the last noise case's nbar_cavity (0.0),
+# not the run's, so the regimes come from the study.
+CAVITY_REGIMES = {
+    "rb_fiber_cavity": dict(
+        g=2 * np.pi * 10e6, kappa=2 * np.pi * 100e3,
+        gamma_spont=2 * np.pi * 30e3, dephasing_rate=2 * np.pi * 5e3,
+        nbar_cavity=0.0, cavity_drift_sigma=0.0, n_loops=21),
+    "circuit_qed_exchange": dict(
+        g=2 * np.pi * 50e6, kappa=2 * np.pi * 50e3,
+        gamma_spont=2 * np.pi * 10e3, dephasing_rate=2 * np.pi * 20e3,
+        nbar_cavity=0.02, cavity_drift_sigma=0.0, n_loops=21),
+}
+
+
+def _spy_expm(stacks):
+    """A stand-in for gate/open_system's expm that keeps each operand and its
+    max_squarings, and checks that count against what the operand needs on
+    the card (a count too small gives NaN there, not an error)."""
+    from noisyquantumsimulator_tpu_torch.ops import expm as texpm
+    real = texpm.expm
+
+    def spy(A, **kw):
+        need = int(texpm._needed_squarings(A, texpm._THETA13).max())
+        ms = kw.get("max_squarings")
+        require(ms is not None and need <= ms,
+                f"expm of {tuple(A.shape)}: max_squarings {ms} covers the "
+                f"{need} squarings the card needs")
+        stacks.append((A.clone(), ms))
+        return real(A, **kw)
+    return spy
+
+
+def _k2_entry(row, shape_name, launches, launched_by, shape):
+    return dict({"name": f"K2 masked_squaring {shape_name}", "route": "cuda",
+                 "source": K2_SOURCE, "replaces": K2_REPLACES,
+                 "launches": launches}, **row,
+                library_call="torch.linalg.matrix_power(R, 2**s)",
+                launched_by=launched_by, shape=shape)
+
+
+def phase_cavity(launch_ms):
+    """Phase 15: the cavity exchange gate at n_fock = 6 for both shipped
+    regimes (7 noise cases, one (1, 576, 576) complex128 expm each) against
+    the shipped records and the host scipy engine; CavityBackend from the
+    default store and from an empty temporary store (the in-process record
+    at n_fock = 4); K2 at both shapes. Returns K2's two kernel entries."""
+    import os
+    import tempfile
+    from unittest import mock
+    import torch
+    from noisyquantumsimulator_tpu_torch.channels import CalibrationStore
+    from noisyquantumsimulator_tpu_torch.channels.calibration import (
+        _complex_matrix_from_json)
+    from noisyquantumsimulator_tpu_torch.gate import cavity_gate, open_system
+    from noisyquantumsimulator_tpu_torch.ops import expm as texpm
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    from noisyquantumsimulator_tpu_torch.primitives.cavity_backend import (
+        CavityBackend)
+    t_phase = time.perf_counter()
+    stacks = []
+    launches_576 = None
+    for regime, kw in CAVITY_REGIMES.items():
+        rec = CalibrationStore().load("cavity_qed", "exchange_gate", regime)
+        S_rec = _complex_matrix_from_json(rec.superop)
+        F_rec = 1.0 - rec.error_rates["avg_gate_infidelity"]
+        n0 = len(stacks)
+        with mock.patch.object(open_system, "expm", _spy_expm(stacks)):
+            cavity_gate.simulate_cavity_gate(n_fock=6, device="cuda", **kw)
+        sq = [ms for _, ms in stacks[n0:]]
+        norms = [float(A.abs().sum(dim=-2).amax()) for A, _ in stacks[n0:]]
+        require(len(sq) == 7 and all(
+            ms == texpm.squarings_for(n, "pade13") for ms, n in zip(sq, norms)),
+            f"{regime}: 7 cases, each with max_squarings from its 1-norm")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, med, times, launches = _timed(lambda: cavity_gate.simulate_cavity_gate(
+            n_fock=6, device="cuda", **kw))
+        peak = torch.cuda.max_memory_allocated()
+        launches_576 = launches if launches_576 is None else launches_576
+        t0 = time.perf_counter()
+        host = cavity_gate.simulate_cavity_gate(n_fock=6, engine="host", **kw)
+        t_host = time.perf_counter() - t0
+        # the host half of a call: the same call with the device channel
+        # replaced by a constant
+        with mock.patch.object(cavity_gate, "qubit_channel_device",
+                               lambda *a, **k: np.eye(16, dtype=complex)):
+            t0 = time.perf_counter()
+            cavity_gate.simulate_cavity_gate(n_fock=6, device="cuda", **kw)
+            t_half = time.perf_counter() - t0
+        dS, dF = float(np.abs(res.superop - S_rec).max()), abs(res.fidelity - F_rec)
+        dSh, dFh = (float(np.abs(res.superop - host.superop).max()),
+                    abs(res.fidelity - host.fidelity))
+        dB = max(abs(res.error_budget[k] - host.error_budget[k])
+                 for k in host.error_budget)
+        say("15 cavity", f"simulate_cavity_gate(n_fock=6) [{regime}] on the card, "
+            f"complex128, 7 cases of (1, 576, 576): F {res.fidelity:.12f} (record "
+            f"{F_rec:.12f}, |dF| {dF:.3e}), max|S - S_record| = {dS:.3e}; vs the "
+            f"host scipy engine ({t_host:.3f} s): superop {dSh:.3e}, F {dFh:.3e}, "
+            f"budget {dB:.3e} (tol 1e-10); median {med * 1e3:.3f} ms a call of 3 "
+            f"({[round(t * 1e3, 3) for t in times]}), its host half (Liouvillian "
+            f"stacks, fidelities; the device channel stubbed) {t_half * 1e3:.3f} ms;"
+            f" K2 launches per call {launches / 3:g}; max_squarings per case {sq} (1-norms "
+            f"{min(norms):.1f}..{max(norms):.1f}); peak device memory "
+            f"{peak / 2 ** 20:.1f} MiB; nbar_cavity recorded "
+            f"{res.parameters['nbar_cavity']} (the record says "
+            f"{rec.parameters['nbar_cavity']})")
+        require(max(dS, dF, dSh, dFh, dB) <= 1e-10,
+                f"cavity {regime}: the shipped record and the host engine")
+        require(launches > 0, "K2 launched by the cavity engine")
+        require(res.parameters["nbar_cavity"] == kw["nbar_cavity"],
+                "the record's parameters are the run's")
+
+    # --- CavityBackend: the shipped record, then the in-process fallback
+    default = CalibrationStore()
+    before = {p: os.stat(p).st_mtime_ns for p in default.list_records()}
+    t0 = time.perf_counter()
+    b1 = CavityBackend(device="cuda")
+    t_b1 = time.perf_counter() - t0
+    say("15 cavity", f"CavityBackend(device='cuda'), default store: {t_b1:.4f} s;"
+        f" summary {b1.summary()}")
+    require(b1.exchange_calibration.regime == "circuit_qed_exchange",
+            "the default store's record")
+    n0 = len(stacks)
+    with tempfile.TemporaryDirectory() as tmp:
+        fused_masked_squaring.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(open_system, "expm", _spy_expm(stacks)):
+            b2 = CavityBackend(device="cuda", calibration_store=CalibrationStore(tmp))
+        t_b2 = time.perf_counter() - t0
+        launches_256 = fused_masked_squaring.launches
+        c2 = CavityBackend(device="cpu", calibration_store=CalibrationStore(tmp))
+    d_sum = max(abs(v - c2.summary()[k]) for k, v in b2.summary().items()
+                if isinstance(v, float))
+    say("15 cavity", f"CavityBackend(device='cuda'), empty temporary store: "
+        f"{t_b2:.3f} s (simulate_cavity_gate(n_fock=4) on the card, 7 cases of "
+        f"(1, 256, 256), {launches_256} K2 launches); vs the same on the CPU: "
+        f"summary {d_sum:.3e} (tol 1e-12); summary {b2.summary()}")
+    require(launches_256 > 0 and d_sum <= 1e-12,
+            "the in-process record on the card equals the CPU's")
+    after = {p: os.stat(p).st_mtime_ns for p in default.list_records()}
+    require(before == after, "the default store is read, not written")
+
+    # --- K2 at both shapes: the case that needs the most squarings
+    entries = []
+    for (A, need), shape_name, launches, by in (
+            (max(stacks[:n0], key=lambda a: a[1]), "(1, 576) complex128 [cavity gate]",
+             launches_576, "3 simulate_cavity_gate(n_fock=6) calls [rb_fiber_cavity]"),
+            (max(stacks[n0:], key=lambda a: a[1]), "(1, 256) complex128 [cavity fallback]",
+             launches_256, "1 CavityBackend() from an empty store "
+                           "(simulate_cavity_gate(n_fock=4))")):
+        R, s = _pade_inputs(A, need)
+        N = A.shape[-1]
+        row = _k2_at(R, s, need, shape_name.replace("]", ", tiled]"), launch_ms,
+                     20, phase="15 cavity")
+        entries.append(_k2_entry(row, shape_name, launches, by,
+                                 f"B=1 N={N} complex128, {need} trips (tiled route)"))
+    del stacks
+    torch.cuda.empty_cache()
+    say("15 cavity", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+# phase 16: the d = 5 extraction circuit compiled onto a 9 x 9 grid; the
+# reference's compiler gives these counts and makespans on the host (they are
+# deterministic host results: native ops, SWAPs, makespan in s)
+ARCH_COMPILE = {"neutral_atoms": (24227, 1047, 0.0008140499999999772),
+                "trapped_ions": (25027, 1047, 0.036503500000000605),
+                "cavity_qed": (24227, 1047, 0.0008140499999999772)}
+ARCH_SHOTS = 1 << 20
+# the study's cavity rows at d = 3 (examples/ion_memory.json): errors, shots
+CAVITY_MEMORY = {"circuit_qed_exchange": (152869, 1 << 20),
+                 "rb_fiber_cavity": (298493, 1 << 20)}
+# the four CX layers of a round of extraction, as (dx, dy) from each ancilla
+# to its data qubit; X ancillas (controls) before Z ancillas in every layer
+EXTRACTION_LAYERS = ((-1, -1), (1, -1), (-1, 1), (1, 1))
+
+
+def _extraction_gates(d, rounds):
+    """The rotated surface code's CX-based syndrome extraction as compiler
+    Gates: per round H on the X ancillas, the four CX layers, H again."""
+    from noisyquantumsimulator_tpu_torch.qec.compiler import Gate
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import build_layout
+    lay = build_layout(d)
+    xanc, zanc = sorted(lay.x_anc), sorted(lay.z_anc)
+    hs = [Gate("h", (lay.x_anc[a],)) for a in xanc]
+    out = []
+    for _ in range(rounds):
+        out += hs
+        for dx, dy in EXTRACTION_LAYERS:
+            out += [Gate("cx", (lay.x_anc[a], lay.data[(a[0] + dx, a[1] + dy)]))
+                    for a in xanc if (a[0] + dx, a[1] + dy) in lay.data]
+            out += [Gate("cx", (lay.data[(a[0] + dx, a[1] + dy)], lay.z_anc[a]))
+                    for a in zanc if (a[0] + dx, a[1] + dy) in lay.data]
+        out += hs
+    return out, lay.n_qubits
+
+
+def _exact_frame_rates(circuit):
+    """Each qubit's exact X- and Z-frame rates at the end of an errors-only
+    circuit without measurements: (1 - prod(1 - 2 q_i)) / 2 over the
+    channels that touch it, q_i the channel's marginal probability of X or Y
+    (X frame), Z or Y (Z frame) on the qubit."""
+    n = circuit.n_qubits
+    keep = {"x": np.ones(n), "z": np.ones(n)}
+    pa, pb = np.divmod(np.arange(16), 4)
+
+    def hit(q, px, pz):
+        keep["x"][q] *= 1.0 - 2.0 * px
+        keep["z"][q] *= 1.0 - 2.0 * pz
+
+    for ins in circuit.instructions:
+        p = ins.arg or 0.0
+        require(ins.name in ("X_ERROR", "Z_ERROR", "DEPOLARIZE1", "DEPOLARIZE2",
+                             "PAULI_CHANNEL_2"), f"no {ins.name} in the circuit")
+        for t in np.asarray(ins.targets):
+            if ins.name == "X_ERROR":
+                hit(t, p, 0.0)
+            elif ins.name == "Z_ERROR":
+                hit(t, 0.0, p)
+            elif ins.name == "DEPOLARIZE1":
+                hit(t, 2 * p / 3, 2 * p / 3)
+            elif ins.name == "DEPOLARIZE2":
+                hit(t[0], 8 * p / 15, 8 * p / 15)
+                hit(t[1], 8 * p / 15, 8 * p / 15)
+            else:
+                pr = np.asarray(ins.probs, np.float64)
+                for q, k in ((t[0], pa), (t[1], pb)):
+                    hit(q, pr[(k == 1) | (k == 2)].sum(), pr[(k == 2) | (k == 3)].sum())
+    return (1.0 - keep["x"]) / 2.0, (1.0 - keep["z"]) / 2.0
+
+
+def _memory_pricing(backend):
+    """examples/ion_memory.py:52-75: the memory circuit's noise from the
+    backend's calibrated primitives."""
+    from noisyquantumsimulator_tpu_torch.channels.pauli import t1_t2_to_pauli_rates
+    cx = backend.two_qubit(0, 1, "cx")
+    meas = backend.measure()
+    p_meas = max(0.0, 1.0 - meas.fidelity)
+    px, py, pz = t1_t2_to_pauli_rates(backend.T1, backend.T2, meas.duration)
+    return dict(cz_pauli_probs=np.asarray(cx.pauli_error_probs), p_meas=p_meas,
+                p_reset=p_meas, p_idle=px + py + pz)
+
+
+def _rep_code(n_data, p):
+    """The bit-flip repetition code of the reference's four-engine check
+    (tests/test_solver.py:200-210) with n_data data qubits (even indices)
+    and n_data - 1 ancillas: X_ERROR(p) on the data, two CX into each
+    ancilla, MR on the ancillas. Exact detector rate 2p(1 - p)."""
+    from noisyquantumsimulator_tpu_torch.qec.circuits import Circuit
+    c = Circuit(n_qubits=2 * n_data - 1)
+    c.append("X_ERROR", list(range(0, 2 * n_data - 1, 2)), arg=p)
+    anc = list(range(1, 2 * n_data - 1, 2))
+    for a in anc:
+        c.append("CX", np.array([[a - 1, a]]))
+        c.append("CX", np.array([[a + 1, a]]))
+    c.append("MR", anc)
+    return c
+
+
+def phase_architecture():
+    """Phase 16: the architecture loop at full width: the d = 5 extraction
+    circuit compiled for each platform, executed at 2^20 shots on every
+    backend against the exact marginals; the cavity rows of the study's
+    memory experiment; the exact circuit simulators at their users' limits."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.primitives import (IonBackend,
+                                                            NeutralAtomBackend)
+    from noisyquantumsimulator_tpu_torch.primitives.cavity_backend import (
+        CavityBackend)
+    from noisyquantumsimulator_tpu_torch.qec.compiler import compile_circuit
+    from noisyquantumsimulator_tpu_torch.qec.executor import (
+        compiled_to_error_circuit, execute)
+    from noisyquantumsimulator_tpu_torch.qec.memory import run_memory
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import memory_z_circuit
+    from noisyquantumsimulator_tpu_torch.qec.topology import grid_topology
+    from noisyquantumsimulator_tpu_torch.solver.circuit_sim import (
+        DensityMatrixSimulator, TrajectorySimulator)
+    from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
+    from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
+    t_phase = time.perf_counter()
+    gates, n_log = _extraction_gates(5, 5)
+    require((n_log, len(gates)) == (49, 520), "d = 5, 5 rounds: 49 qubits, 520 gates")
+    compiled = {}
+    for platform, (n_ops, n_swaps, makespan) in ARCH_COMPILE.items():
+        t0 = time.perf_counter()
+        cc = compile_circuit(gates, grid_topology(9, 9), platform=platform)
+        t_c = time.perf_counter() - t0
+        say("16 architecture", f"compile_circuit(d = 5 extraction, grid 9 x 9, "
+            f"{platform}): {len(cc.ops)} native ops, {cc.n_swaps} SWAPs, "
+            f"{cc.n_moves} moves, makespan {cc.schedule.total_time * 1e6:.4f} us, "
+            f"{cc.schedule.n_layers} layers; host {t_c:.2f} s (the reference's: "
+            f"{n_ops}, {n_swaps}, {makespan * 1e6:.4f} us)")
+        require((len(cc.ops), cc.n_swaps, cc.schedule.total_time)
+                == (n_ops, n_swaps, makespan), f"{platform}: the reference's compile")
+        compiled[platform] = cc
+
+    backends = (("neutral_atoms", "NeutralAtomBackend()",
+                 lambda: NeutralAtomBackend(device="cuda")),
+                ("trapped_ions", "IonBackend() [yb171_default]",
+                 lambda: IonBackend(device="cuda")),
+                ("cavity_qed", "CavityBackend() [circuit_qed_exchange]",
+                 lambda: CavityBackend(regime="circuit_qed_exchange", device="cuda")),
+                ("cavity_qed", "CavityBackend() [rb_fiber_cavity]",
+                 lambda: CavityBackend(regime="rb_fiber_cavity", device="cuda")))
+    cavity = {}
+    for i, (platform, name, make) in enumerate(backends):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            b = make()
+        if platform == "cavity_qed":
+            cavity[b.regime] = b
+        cc = compiled[platform]
+        circuit = compiled_to_error_circuit(cc, b)
+        fx, fz = _exact_frame_rates(circuit)
+        run = lambda: execute(cc, b, shots=ARCH_SHOTS, seed=SEED + 160 + i,
+                              device="cuda")
+        wall, idle, by_name, _, n_ev = profile_window(
+            run, f"execute_{i}", n_calls=1, host_ops=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        t_x = time.perf_counter() - t0
+        worst = 0.0
+        for got, want in ((res.per_qubit_flip_rate, fx), (res.per_qubit_phase_rate, fz)):
+            sd = np.sqrt(want * (1 - want) / ARCH_SHOTS)
+            require(np.all(got[sd == 0] == want[sd == 0]), "rates that are 0 are 0")
+            worst = max(worst, float((np.abs(got - want)[sd > 0] / sd[sd > 0]).max()))
+        top = sorted((by_name or {}).items(), key=lambda kv: -kv[1])[:4]
+        say("16 architecture", f"execute({platform}, {name}, {ARCH_SHOTS} shots) "
+            f"on the card: {len(circuit.instructions)} channel instructions on "
+            f"{circuit.n_qubits} qubits; {t_x:.3f} s a call ({wall:.3f} s under "
+            f"the profiler), {n_ev} device events a call, idle share "
+            f"{'not measured' if idle is None else f'{idle:.4f}'}; P(any error) "
+            f"{res.p_any_error:.6f}; flip rates {res.per_qubit_flip_rate.min():.3e}"
+            f"..{res.per_qubit_flip_rate.max():.3e}, phase rates "
+            f"{res.per_qubit_phase_rate.min():.3e}..{res.per_qubit_phase_rate.max():.3e}"
+            f"; max |z| vs the exact marginals {worst:.2f} (tol 5); top device "
+            f"ops {[(k[:40], round(v, 1)) for k, v in top]} us")
+        require(worst <= 5.0, f"{name}: every qubit's rates within 5 sigma")
+        require(n_ev > 0, f"{name}: the executor ran on the card")
+
+    # --- the cavity rows of the study's memory experiment at d = 3
+    for regime, (k_ref, n_ref) in CAVITY_MEMORY.items():
+        pr = _memory_pricing(cavity[regime])
+        circuit = memory_z_circuit(3, 3, noise="calibrated", p=0.0, **pr)
+        t0 = time.perf_counter()
+        res = run_memory(d=3, rounds=3, p=0.0, shots=ARCH_SHOTS, circuit=circuit,
+                         seed=0, device="cuda")
+        t_m = time.perf_counter() - t0
+        lo, hi = wilson_ci(res.n_logical_errors, ARCH_SHOTS)
+        rlo, rhi = wilson_ci(k_ref, n_ref)
+        say("16 architecture", f"memory d = 3 [{regime}] priced by CavityBackend "
+            f"(p_meas {pr['p_meas']:.6e}, p_idle {pr['p_idle']:.6e}): p_L "
+            f"{res.p_logical_shot:.6f} ({res.n_logical_errors} / {ARCH_SHOTS}), "
+            f"95% CI [{lo:.6f}, {hi:.6f}] vs the study's {k_ref} / {n_ref} "
+            f"[{rlo:.6f}, {rhi:.6f}]; decoder {res.decoder}; {t_m:.2f} s")
+        require(lo <= rhi and rlo <= hi, f"{regime}: p_L CI overlaps the study's")
+
+    # --- the exact simulators at their users' limits
+    p = 0.05
+    exact = 2 * p * (1 - p)
+    rep = _rep_code(6, p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm = DensityMatrixSimulator(rep, device="cuda").run()["measurement_probs"].cpu()
+    t_dm = time.perf_counter() - t0
+    err = float((dm - exact).abs().max())
+    say("16 architecture", f"DensityMatrixSimulator, {rep.n_qubits}-qubit "
+        f"repetition code (6 data), rho (2048, 2048) complex64: {t_dm:.3f} s; "
+        f"max|p - 2p(1-p)| = {err:.3e} over {dm.numel()} detectors (tol 1e-6)")
+    require(dm.numel() == 5 and err <= 1e-6, "density matrix: exact detector rates")
+    rep = _rep_code(7, p)
+    T = 16384
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 16)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    meas = TrajectorySimulator(rep, T, device="cuda").sample(gen)["measurements"]
+    rates = meas.float().mean(0).cpu().numpy()
+    t_tr = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    zt = float(np.abs(rates - exact).max() / np.sqrt(exact * (1 - exact) / T))
+    say("16 architecture", f"TrajectorySimulator, {rep.n_qubits}-qubit repetition "
+        f"code (7 data), T = {T}, psi ({T}, 8192) complex64: {t_tr:.3f} s, peak "
+        f"device memory {peak / 2 ** 30:.3f} GiB; detector rates "
+        f"{rates.min():.5f}..{rates.max():.5f}, max |z| vs 2p(1-p) {zt:.2f} (tol 6)")
+    require(rates.shape == (6,) and zt <= 6.0, "trajectories: detector rates")
+    say("16 architecture", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
-                                       "primitives", "surface"),
+                                       "primitives", "surface", "architecture"),
                     help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
-                         "(channel), 1, 2 and 13 (primitives) or 1, 2 and 14 "
-                         "(surface) only, and print no result line")
+                         "(channel), 1, 2 and 13 (primitives), 1, 2 and 14 "
+                         "(surface) or 1, 2, 15 and 16 (architecture) only, "
+                         "and print no result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -1883,6 +2301,10 @@ def main(argv=None) -> int:
     if args.only == "surface":
         phase_surface()
         return 0
+    if args.only == "architecture":
+        phase_cavity(launch_ms)
+        phase_architecture()
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -1901,6 +2323,8 @@ def main(argv=None) -> int:
     kernels.append(phase_channel(launch_ms)[1])
     kernels.extend(phase_primitives(launch_ms))
     phase_surface()
+    kernels.extend(phase_cavity(launch_ms))
+    phase_architecture()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

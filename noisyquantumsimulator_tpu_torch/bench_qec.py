@@ -192,7 +192,7 @@ def device_profile(fn, tag: str):
     share of the device within its span, [(kernel name, device us)] of the
     8 largest, trace path); (None, [], path) when the trace holds no device
     events."""
-    _, idle, by_name, path = profile_window(fn, tag, n_calls=1)
+    _, idle, by_name, path, _ = profile_window(fn, tag, n_calls=1)
     top = sorted((by_name or {}).items(), key=lambda kv: -kv[1])[:8]
     return idle, top, path
 

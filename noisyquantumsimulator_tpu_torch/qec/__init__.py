@@ -1,4 +1,6 @@
-"""QEC layer of the port: the BB-LDPC and surface-code memory paths.
+"""QEC layer of the port: the BB-LDPC, surface-code and color-code memory
+paths, and the architecture loop (topology -> compiler -> scheduler ->
+executor).
 
   circuits         stabilizer-circuit IR (host numpy)
   dem              detector error model by frame propagation (host numpy)
@@ -16,22 +18,31 @@
   dem_decoder      tiered BP on the DEM + host OSD-0
   native           the C++ OSD-0, exact matcher and erasure peeler (built
                    with the host compiler)
+  color_code       triangular 6.6.6 color codes (host), BP+OSD memory
+  ldpc_layout      movement-based BB check extraction planning (host)
+  topology         qubit layouts and connectivity (host)
+  scheduler        ASAP / ALAP / list scheduling under constraints (host)
+  compiler         decompose -> map -> route -> schedule (host)
+  executor         compiled circuit -> error circuit -> frame Monte Carlo
+                   on the device
 
 Class names drop the reference's `TPU` suffix: ExactMatcherTPU ->
 ExactMatcher, HybridMatcherTPU -> HybridMatcher, TieredMatcherTPU ->
 TieredMatcher, WindowMatcherTPU -> WindowMatcher, ClusterMatcherTPU ->
 ClusterMatcher. Function names are the reference's. Not ported yet:
-color_code, topology, ldpc_layout, lattice_surgery, nn_decoder, scheduler,
-compiler, executor.
+lattice_surgery, nn_decoder.
 """
-from . import (bp_cuda, circuits, cluster_matcher, decoders, dem,  # noqa: F401
-               dem_decoder, erasure, exact_matcher, fast_sampler, ldpc,
-               memory, native, pauli_frame, surface_code, window_matcher)
+from . import (bp_cuda, circuits, cluster_matcher, color_code,  # noqa: F401
+               compiler, decoders, dem, dem_decoder, erasure, exact_matcher,
+               executor, fast_sampler, ldpc, ldpc_layout, memory, native,
+               pauli_frame, scheduler, surface_code, topology,
+               window_matcher)
 from .dem_decoder import DemBPDecoder, decoder_from_numpy  # noqa: F401
 from .fast_sampler import build_fast_sampler, sample_circuit_fast  # noqa: F401
 from .ldpc import (bb_memory_circuit, gross_code,  # noqa: F401
                    run_bb_circuit_memory, small_bb_code)
 from .erasure import run_erasure_memory  # noqa: F401
+from .executor import execute  # noqa: F401
 from .memory import run_memory, MemoryResult  # noqa: F401
 from .surface_code import memory_z_circuit, build_layout, code_metrics  # noqa: F401
 from .exact_matcher import (exact_matcher_for_circuit,  # noqa: F401

@@ -98,7 +98,8 @@ def _apply_channel(name, gen, x, z, t, p, probs, shots):
         idx = torch.where(u < p, idx, 0)
         return _pair_paulis(x, z, t[:, 0], t[:, 1], idx)
     if name == "PAULI_CHANNEL_2":
-        cum = torch.cumsum(torch.as_tensor(np.asarray(probs, np.float32),
+        # probs: host numbers, or a float32 vector already on the device
+        cum = torch.cumsum(torch.as_tensor(probs, dtype=torch.float32,
                                            device=dev), 0)
         u = uniform(shots, len(t), 1)
         idx = (u >= cum[None, None, :]).sum(dim=-1).clamp(0, 15)

@@ -14,19 +14,24 @@ TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "_build", "traces")
 
 
-def profile_window(fn, tag: str, n_calls: int = 3):
+def profile_window(fn, tag: str, n_calls: int = 3, host_ops: bool = True):
     """torch.profiler over `n_calls` calls of fn after one warm-up call.
 
     Returns (wall seconds per call, the device's idle share within the
     kernels' span = 1 - union of kernel, memcpy and memset intervals / span,
-    {kernel name: device microseconds}, trace path); the idle share and the
-    dict are None when the trace holds no device events."""
+    {kernel name: device microseconds}, trace path, number of device
+    events); the idle share and the dict are None when the trace holds no
+    device events. host_ops=False records the device activity alone (no
+    host op events): for a call of hundreds of thousands of small ops,
+    whose full trace would be several times larger."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(n_calls):
             fn()
@@ -43,14 +48,14 @@ def profile_window(fn, tag: str, n_calls: int = 3):
                  if e.get("ph") == "X" and e.get("cat") in
                  ("kernel", "gpu_memcpy", "gpu_memset"))
     if not dev:
-        return wall, None, None, path
+        return wall, None, None, path, 0
     busy, end = 0.0, dev[0][0]
     by_name = {}
     for a, b, name in dev:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-    return wall, 1.0 - busy / (end - dev[0][0]), by_name, path
+    return wall, 1.0 - busy / (end - dev[0][0]), by_name, path, len(dev)
 
 
 __all__ = ["profile_window", "TRACE_DIR"]

@@ -12,7 +12,10 @@ complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
 at float32 and bfloat16 (one rounding of the same exact product). The
 surface-code matchers (plain torch ops, no kernel of their own) are
 bit-identical on the card and on the CPU; the fast sampler's detector rates
-lie within 5 binomial sigma of the DEM's analytic rates.
+lie within 5 binomial sigma of the DEM's analytic rates. The architecture
+loop's executor (torch ops) gives per-qubit frame rates within 5 binomial
+sigma of their exact marginals (`exact_frame_rates`, shared with the CPU
+tests); the density-matrix simulator on the card equals the CPU's to 1e-6.
 """
 import numpy as np
 import pytest
@@ -483,3 +486,168 @@ def test_surface_sampler_rates_match_dem_cuda(cuda):
     emp = (build_fast_sampler(circuit, N, cuda)(g)["detectors"]
            .sum(dim=0, dtype=torch.int64).cpu().numpy() / N)
     assert (np.abs(emp - rate) / np.sqrt(rate * (1 - rate) / N)).max() <= 5.0
+
+
+# --- the architecture loop: helpers shared with the CPU tests --------------
+
+# the four CX layers of one round of extraction, as (dx, dy) from each
+# ancilla to its data qubit; X ancillas (controls) before Z ancillas
+# (targets) in every layer
+EXTRACTION_LAYERS = ((-1, -1), (1, -1), (-1, 1), (1, 1))
+
+
+def extraction_gates(d, rounds):
+    """The rotated surface code's CX-based syndrome extraction as compiler
+    `Gate`s: per round, H on the X ancillas, the four CX layers, H again
+    (d = 5, 5 rounds: 49 qubits, 520 gates)."""
+    from noisyquantumsimulator_tpu_torch.qec.compiler import Gate
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import build_layout
+    lay = build_layout(d)
+    xanc, zanc = sorted(lay.x_anc), sorted(lay.z_anc)
+    hs = [Gate("h", (lay.x_anc[a],)) for a in xanc]
+    out = []
+    for _ in range(rounds):
+        out += hs
+        for dx, dy in EXTRACTION_LAYERS:
+            out += [Gate("cx", (lay.x_anc[a], lay.data[(a[0] + dx, a[1] + dy)]))
+                    for a in xanc if (a[0] + dx, a[1] + dy) in lay.data]
+            out += [Gate("cx", (lay.data[(a[0] + dx, a[1] + dy)], lay.z_anc[a]))
+                    for a in zanc if (a[0] + dx, a[1] + dy) in lay.data]
+        out += hs
+    return out
+
+
+def exact_frame_rates(circuit):
+    """Each qubit's exact X- and Z-frame rates at the end of an errors-only
+    circuit: the frame bit is the XOR of independent channel draws, so its
+    rate is (1 - prod(1 - 2 q_i)) / 2 over the channels that touch the qubit,
+    q_i the channel's marginal probability of flipping that bit (X or Y on
+    the qubit for the X frame, Z or Y for the Z frame). MR clears both."""
+    n = circuit.n_qubits
+    keep = {"x": np.ones(n), "z": np.ones(n)}
+
+    def hit(q, px, pz):
+        keep["x"][q] *= 1.0 - 2.0 * px
+        keep["z"][q] *= 1.0 - 2.0 * pz
+
+    for ins in circuit.instructions:
+        p = ins.arg or 0.0
+        for t in np.asarray(ins.targets):
+            if ins.name == "X_ERROR":
+                hit(t, p, 0.0)
+            elif ins.name == "Z_ERROR":
+                hit(t, 0.0, p)
+            elif ins.name == "DEPOLARIZE1":
+                hit(t, 2 * p / 3, 2 * p / 3)
+            elif ins.name == "ERASE":
+                hit(t, p / 2, p / 2)
+            elif ins.name == "DEPOLARIZE2":
+                hit(t[0], 8 * p / 15, 8 * p / 15)
+                hit(t[1], 8 * p / 15, 8 * p / 15)
+            elif ins.name == "PAULI_CHANNEL_2":
+                pa, pb = np.divmod(np.arange(16), 4)
+                pr = np.asarray(ins.probs, np.float64)
+                for q, k in ((t[0], pa), (t[1], pb)):
+                    hit(q, pr[(k == 1) | (k == 2)].sum(),
+                        pr[(k == 2) | (k == 3)].sum())
+            elif ins.name == "MR":
+                keep["x"][t] = keep["z"][t] = 1.0
+    return (1.0 - keep["x"]) / 2.0, (1.0 - keep["z"]) / 2.0
+
+
+def frame_rate_z(result, circuit):
+    """max |z| of the executed per-qubit flip and phase rates against the
+    exact marginals (binomial sigma; rates that are exactly 0 must be 0)."""
+    worst = 0.0
+    for got, want in zip((result.per_qubit_flip_rate,
+                          result.per_qubit_phase_rate),
+                         exact_frame_rates(circuit)):
+        sd = np.sqrt(want * (1 - want) / result.shots)
+        assert np.all(got[sd == 0] == want[sd == 0])
+        if (sd > 0).any():
+            worst = max(worst, float((np.abs(got - want)[sd > 0]
+                                      / sd[sd > 0]).max()))
+    return worst
+
+
+# --- the architecture loop on the card --------------------------------------
+
+def test_masked_squaring_kernel_cavity_shape(cuda):
+    """K2 at the cavity engine's shape: (1, 576) complex128, tiled, with the
+    squaring count of a Liouvillian of 1-norm in the thousands."""
+    from noisyquantumsimulator_tpu_torch.ops.expm import (_THETA13, _pade13,
+                                                          _scale,
+                                                          squarings_for)
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((1, 576, 576)) + 1j * rng.standard_normal(
+        (1, 576, 576))
+    A *= 3000.0 / np.abs(A).sum(axis=-2).max()
+    ms = squarings_for(np.abs(A).sum(axis=-2).max(), "pade13")
+    At = torch.as_tensor(A, device=cuda)
+    As, s = _scale(At, _THETA13, ms)
+    I = torch.eye(576, dtype=At.dtype, device=cuda).expand(At.shape)
+    R = _pade13(As, I).contiguous()
+    before = fused_masked_squaring.launches
+    got = fused_masked_squaring(R, s, ms)
+    assert fused_masked_squaring.launches == before + ms
+    ref = _masked_squaring_plain(R, s, ms)
+    torch.cuda.synchronize()
+    assert int(s.max()) == ms
+    assert float((got - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def test_cavity_gate_cuda_matches_cpu(cuda):
+    """The cavity engine (n_fock 4: (256, 256) complex128, K2 tiled) on the
+    card against the same engine on the CPU, the full budget."""
+    from noisyquantumsimulator_tpu_torch.gate import cavity_gate
+    before = fused_masked_squaring.launches
+    g = cavity_gate.simulate_cavity_gate(n_fock=4, device="cuda")
+    assert fused_masked_squaring.launches > before
+    c = cavity_gate.simulate_cavity_gate(n_fock=4, device="cpu")
+    assert np.abs(g.superop - c.superop).max() <= 1e-12
+    assert abs(g.fidelity - c.fidelity) <= 1e-12
+    for k, v in c.error_budget.items():
+        assert abs(g.error_budget[k] - v) <= 1e-12, k
+
+
+@pytest.mark.parametrize("platform", ["neutral_atoms", "trapped_ions",
+                                      "cavity_qed"])
+def test_execute_cuda_matches_exact_marginals(cuda, platform):
+    from noisyquantumsimulator_tpu_torch.qec.compiler import compile_circuit
+    from noisyquantumsimulator_tpu_torch.qec.executor import (
+        compiled_to_error_circuit, execute)
+    from noisyquantumsimulator_tpu_torch.qec.topology import grid_topology
+    compiled = compile_circuit(extraction_gates(3, 2), grid_topology(5, 5),
+                               platform=platform)
+    kw = dict(p1=2e-3, cz_pauli_probs=None, t1=4.0, t2=1.0)
+    res = execute(compiled, shots=1 << 18, seed=5, device="cuda", **kw)
+    assert frame_rate_z(res, compiled_to_error_circuit(compiled, **kw)) <= 5.0
+    zero = execute(compiled, shots=4096, seed=2, device="cuda",
+                   cz_pauli_probs=np.eye(16)[0], p1=0.0, p_meas=0.0,
+                   t1=1e9, t2=1e9)
+    assert zero.p_any_error == 0.0
+
+
+def test_density_matrix_cuda_matches_cpu(cuda):
+    """A 7-qubit repetition-code circuit with every channel kind, on the
+    card and on the CPU (complex64; summation orders differ)."""
+    from noisyquantumsimulator_tpu_torch.qec.circuits import Circuit
+    from noisyquantumsimulator_tpu_torch.solver.circuit_sim import (
+        DensityMatrixSimulator)
+    c = Circuit(n_qubits=7)
+    c.append("H", [0])
+    c.append("CX", np.array([[0, 2], [2, 4], [4, 6]]))
+    c.append("DEPOLARIZE1", [0, 2, 4, 6], arg=0.03)
+    c.append("PAULI_CHANNEL_2", np.array([[0, 2]]),
+             probs=np.r_[0.9, np.full(15, 0.1 / 15)])
+    c.append("DEPOLARIZE2", np.array([[4, 6]]), arg=0.02)
+    for a, (d1, d2) in ((1, (0, 2)), (3, (2, 4)), (5, (4, 6))):
+        c.append("CX", np.array([[d1, a], [d2, a]]))
+    c.append("X_ERROR", [1, 3, 5], arg=0.01)
+    c.append("MR", [1, 3, 5], arg=0.005)
+    c.append("Z_ERROR", [0], arg=0.05)
+    c.append("M", [0, 2, 4, 6])
+    g = DensityMatrixSimulator(c, device=cuda).run()
+    h = DensityMatrixSimulator(c, device="cpu").run()
+    for k in ("rho", "measurement_probs"):
+        assert float((g[k].cpu() - h[k]).abs().max()) <= 1e-6, k
