@@ -3,8 +3,9 @@
 engine, the BB-LDPC sample + BP decode path, the optimizer's forward and
 gradient paths, the channel / calibration bridge, the Layer-1 primitive
 backends (neutral atoms, trapped ions, cavity QED), the surface-code memory
-path and the architecture loop (topology -> compiler -> scheduler ->
-executor, and the exact circuit simulators).
+path, the architecture loop (topology -> compiler -> scheduler ->
+executor, and the exact circuit simulators), the multi-device layer on a
+one-rank NCCL group, lattice surgery and the NN decoder.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
@@ -14,6 +15,8 @@ executor, and the exact circuit simulators).
     python3 chip_smoke.py --only primitives  (phases 1, 2 and 13)
     python3 chip_smoke.py --only surface     (phases 1, 2 and 14)
     python3 chip_smoke.py --only architecture  (phases 1, 2, 15 and 16)
+    python3 chip_smoke.py --only parallel    (phases 1, 2 and 17)
+    python3 chip_smoke.py --only surgery     (phases 1, 2 and 18)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -130,6 +133,27 @@ each; any failure raises and the script exits non-zero:
               and TrajectorySimulator (T = 16384) on a 13-qubit repetition
               code against the exact 2p(1 - p). Only K2 runs here among the
               port's kernels (phase 15); the rest is torch ops and host code
+ 17. parallel   a one-rank NCCL group (the card is one device; make_mesh(2) and
+              dryrun_multichip(4) raise): entry() (K2, one launch) against its
+              CPU run; dryrun_multichip(1) (sweep step, sharded QEC Monte
+              Carlo, sharded DE; five K2 launches); complex128 evolve_rhos of
+              the 32-segment problem against the host zvode oracle (1 - F
+              within 1e-8), evolve_rhos_trajectory's last state against it
+              (1e-12), total_propagator_phased against total_propagator at 300
+              segments (1e-10); make_population_objective_sharded at P = 1024
+              (phase 10's problem): costs equal to the unsharded objective's,
+              one K2 launch a call, evaluations/s, 8 members against the
+              complex128 per-segment path (1e-4), 2 DE generations;
+              run_bb_memory_sharded on the gross code at p = 1e-2, 65536 shots,
+              50 iterations: shots/s, p_L with its Wilson CI, convergence; its
+              rank body on the card against the CPU on 4096 fixed error rows;
+              K2 at entry()'s (32, 81) complex64 inputs against its twin
+ 18. surgery    run_zz_surgery(5) at 131072 shots: p = 0 silent, and at p =
+              1e-3 every decoded rate (native exact matcher) below its raw
+              rate; train_nn_decoder(d=3, p=3e-3, steps=300) on the card beats
+              0.6 of the trivial decoder's p_L, its logits equal the CPU
+              module's on 4096 rows (1e-5); d = 5 training timed. No kernel of
+              the port runs here (torch ops and host C++)
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -940,7 +964,8 @@ def _drive_population(tag, obj, pop, what):
     return cost, metrics, launches, P / med
 
 
-def _hold_to_c128(what, problem, key, kw, pop8, cost, metrics, obj64, tol_f):
+def _hold_to_c128(what, problem, key, kw, pop8, cost, metrics, obj64, tol_f,
+                  phase="10 optimizer"):
     """The first members' costs and fidelities against the complex128
     per-segment path (one expm per member and segment, evolve_rhos): the
     fidelities within `tol_f` absolute and the cost within 5e-3 relative at
@@ -974,7 +999,7 @@ def _hold_to_c128(what, problem, key, kw, pop8, cost, metrics, obj64, tol_f):
     dF = max(float((metrics[k][:n].double() - ref_m[k]).abs().max())
              for k in ("avg_fidelity", "f00", "f01", "f10", "f11",
                        "cz_phase_fidelity"))
-    say("10 optimizer", f"{what}: {n} members against the complex128 per-segment "
+    say(phase, f"{what}: {n} members against the complex128 per-segment "
         f"path (squarings of its segments: Taylor-16 {int(s_t.min())}.."
         f"{int(s_t.max())}, complex64 Pade-13 {int(s_p.min())}..{int(s_p.max())}): "
         f"max|dF| "
@@ -1512,9 +1537,10 @@ def _timed(fn, n=3):
     return out, statistics.median(times), times, fused_masked_squaring.launches
 
 
-def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives"):
-    """K2 against its twin (1e-12 relative at 64 bits) and matrix_power at
-    squaring inputs R, s; times (not counted) and the bound."""
+def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives", tol=1e-12):
+    """K2 against its twin (`tol` relative: 1e-12 at 64 bits) and
+    matrix_power at squaring inputs R, s; times (not counted) and the
+    bound."""
     import torch
     from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
         _masked_squaring_plain, fused_masked_squaring)
@@ -1525,7 +1551,7 @@ def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives"):
     require(got.shape == R.shape and bool(torch.isfinite(
         torch.view_as_real(got) if got.is_complex() else got).all()),
         f"K2 {what}: finite, shaped as R")
-    require(err <= 1e-12 * scale, f"K2 {what}: {err:.3e} > 1e-12 * {scale:.3e}")
+    require(err <= tol * scale, f"K2 {what}: {err:.3e} > {tol:g} * {scale:.3e}")
     del got, ref
     k_ms, p_ms = _kernel_vs_plain_ms(lambda: fused_masked_squaring(R, s, ms),
                                      lambda: _masked_squaring_plain(R, s, ms), reps)
@@ -1538,7 +1564,7 @@ def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives"):
     by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
     say(phase, f"K2 {what}, max_squarings {ms}, s in [{int(s.min())}, "
         f"{int(s.max())}]: max|kernel - twin| = {err:.3e} (max|ref| {scale:.3e}, "
-        f"tol 1e-12 relative); K2 {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
+        f"tol {tol:g} relative); K2 {k_ms:.4f} ms, plain twin {p_ms:.4f} ms, "
         f"matrix_power {'none (s differs)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
         f"; bound {bound:.5f} ms ({binds}; operations {terms['operations']:.5f} at "
         f"{PEAK_FP64 / 1e12:g} TFLOP/s, bytes {terms['bytes']:.5f}, launch "
@@ -2268,16 +2294,350 @@ def phase_architecture():
     say("16 architecture", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+
+def _k2_count(fn):
+    """fn() with K2's count set to 0 just before and read just after (after a
+    sync): (result, K2 launches, wall s)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    torch.cuda.synchronize()
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fused_masked_squaring.launches, time.perf_counter() - t0
+
+
+def _oracle_checks(launches):
+    """Phase 17's solver checks, complex128 on the card: evolve_rhos of the
+    entry point's 32-segment problem against the host zvode oracle (1 - F
+    within 1e-8 for each of the 5 states), the last state of
+    evolve_rhos_trajectory against evolve_rhos (1e-12), and
+    total_propagator_phased against total_propagator at 300 segments
+    (1e-10)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.graft_entry import build_small_problem
+    from noisyquantumsimulator_tpu_torch.ops.expm import expm
+    from noisyquantumsimulator_tpu_torch.ops.hilbert import HS3
+    from noisyquantumsimulator_tpu_torch.ops.phase_frame import phase_frame_generator
+    from noisyquantumsimulator_tpu_torch.solver.propagator import (
+        Schedule, evolve_rhos, evolve_rhos_trajectory, segment_liouvillians,
+        total_propagator, total_propagator_phased)
+    from noisyquantumsimulator_tpu_torch.solver.reference import (
+        mesolve_zvode_liouvillian)
+    c128 = torch.complex128
+    L0, Cp, Cm, phases, dts, rho0s, _ = build_small_problem(32, dtype=c128)
+    put = lambda a: torch.as_tensor(a, device="cuda")
+    ops = [put(a) for a in (L0, Cp, Cm)]
+    sched = Schedule(np.ones(32), phases, dts)
+    rhos, launches["evolve_rhos c128"], wall = _k2_count(
+        lambda: evolve_rhos(*ops, sched, put(rho0s)))
+    Ls = (segment_liouvillians(*[torch.as_tensor(a) for a in (L0, Cp, Cm)], sched)
+          / torch.as_tensor(dts)[:, None, None]).numpy()
+    t0 = time.perf_counter()
+    ref = [mesolve_zvode_liouvillian(Ls, dts, r) for r in rho0s]
+    t_zvode = time.perf_counter() - t0
+    got = rhos.cpu().numpy()
+    err = max(abs(1.0 - _uhlmann(got[i], ref[i])) for i in range(len(ref)))
+    drho = max(float(np.abs(got[i] - ref[i]).max()) for i in range(len(ref)))
+    say("17 parallel", f"evolve_rhos, 32 segments, complex128 on the card "
+        f"({wall * 1e3:.1f} ms, K2 launches {launches['evolve_rhos c128']}) against "
+        f"the host zvode oracle ({t_zvode:.2f} s, atol 1e-10, rtol 1e-8): max|1 - F| "
+        f"over the 5 states {err:.3e} (tol 1e-8), max|d rho| {drho:.3e}")
+    require(err <= 1e-8, "evolve_rhos within 1e-8 of the zvode oracle")
+
+    traj, launches["evolve_rhos_trajectory c128"], wall = _k2_count(
+        lambda: evolve_rhos_trajectory(*ops, sched, put(rho0s)))
+    e_last = float((traj[-1] - rhos).abs().max())
+    say("17 parallel", f"evolve_rhos_trajectory, 32 segments, complex128: "
+        f"{tuple(traj.shape)} in {wall * 1e3:.1f} ms, K2 launches "
+        f"{launches['evolve_rhos_trajectory c128']}; max|last state - evolve_rhos| "
+        f"{e_last:.3e} (tol 1e-12)")
+    require(traj.shape == (33,) + rho0s.shape and e_last <= 1e-12,
+            "the trajectory ends at evolve_rhos's state")
+
+    n = 300
+    ph = 0.311 * np.pi * np.cos(1.242 * np.linspace(0.0, 10.09, n) - 4.696)
+    dt = np.full(n, dts[0] * 32 / n)
+    g = phase_frame_generator(L0, Cp, Cm, HS3)
+    U_tot, launches["total_propagator c128, 300 segments"], w1 = _k2_count(
+        lambda: total_propagator(*ops, Schedule(np.ones(n), ph, dt)))
+    U_ph, launches["total_propagator_phased c128"], w2 = _k2_count(
+        lambda: total_propagator_phased(expm((ops[0] + ops[1] + ops[2]) * dt[0]),
+                                        g, ph))
+    e_ph = float((U_ph - U_tot).abs().max())
+    say("17 parallel", f"total_propagator_phased (one expm, the telescoped tree, "
+        f"{w2 * 1e3:.1f} ms) against total_propagator (300 expms, {w1 * 1e3:.1f} "
+        f"ms), 300 segments, complex128: max|dU| {e_ph:.3e} (tol 1e-10)")
+    require(e_ph <= 1e-10, "total_propagator_phased equals total_propagator")
+
+
+def _bb_body_card_vs_cpu(Hx, Hz, p, n_iters, rows):
+    """The BB rank body on the card and on the CPU, fed the same error rows:
+    equal fail and converged counts, or every differing shot listed with
+    |belief| < 1e-4 (a hard decision BP left at a tie)."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.parallel import bb_mc
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 17)
+    errors = torch.rand((rows, Hz.shape[1]), generator=gen) < p
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        o = bb_mc.rank_body(errors.to(dev), bb_mc.bb_tables(Hx, Hz, p, n_iters, dev))
+        outs[dev] = {k: v.cpu() for k, v in o.items()}
+        outs[dev]["s"] = time.perf_counter() - t0
+    g, c = outs["cuda"], outs["cpu"]
+    diff = torch.nonzero((g["fail"] != c["fail"]) | (g["converged"] != c["converged"]))
+    diff = diff[:, 0].tolist()
+    weak = [int(i) for i in diff
+            if min(float(g["belief"][i].abs().min()), float(c["belief"][i].abs().min())) < 1e-4]
+    say("17 parallel", f"BB rank body, {rows} fixed error rows, card ({g['s']:.2f} s) "
+        f"vs CPU ({c['s']:.2f} s): fail {int(g['fail'].sum())} / "
+        f"{int(c['fail'].sum())}, converged {int(g['converged'].sum())} / "
+        f"{int(c['converged'].sum())}; shots that differ {diff} "
+        f"(with |belief| < 1e-4: {weak})")
+    require(len(weak) == len(diff),
+            "the card's rank body equals the CPU's shot by shot, but for tied "
+            "beliefs")
+
+
+def phase_parallel(launch_ms):
+    """Phase 17: the multi-device layer on a one-rank NCCL group (the card
+    is one device): entry(), dryrun_multichip(1), the solver's oracle
+    checks, the sharded population objective at P = 1024 and the sharded
+    BB-LDPC Monte Carlo at 65536 shots. Returns K2's record for the
+    kernels line (the entry point's (32, 81) complex64 chain)."""
+    import os
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from noisyquantumsimulator_tpu_torch.graft_entry import (
+        build_small_problem, dryrun_multichip, entry)
+    from noisyquantumsimulator_tpu_torch.ops.expm import _THETA16, _scale, _taylor16
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    from noisyquantumsimulator_tpu_torch.optimize.de import differential_evolution
+    from noisyquantumsimulator_tpu_torch.parallel import (
+        init_rank, make_mesh, make_population_objective_sharded,
+        run_bb_memory_sharded)
+    from noisyquantumsimulator_tpu_torch.qec.ldpc import gross_code
+    from noisyquantumsimulator_tpu_torch.solver.propagator import (
+        Schedule, segment_liouvillians)
+    from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            say("17 parallel", f"one-rank {dist.get_backend()} group on "
+                f"cuda:{torch.cuda.current_device()}")
+            for n, what in ((2, "make_mesh(2)"), (4, "dryrun_multichip(4)")):
+                try:
+                    make_mesh(n) if n == 2 else dryrun_multichip(n)
+                except ValueError as e:
+                    say("17 parallel", f"{what} on one rank raises: {e}")
+                else:
+                    require(False, f"{what} raises on a one-rank group")
+
+            # --- entry(): the 32-segment forward step, K2 on the card
+            fn, args = entry()
+            F, launches["entry"], wall = _k2_count(lambda: fn(*args))
+            fc, ac = entry("cpu")
+            F_cpu = float(fc(*ac))
+            say("17 parallel", f"entry() forward on the card: F = {float(F):.7f} "
+                f"({wall * 1e3:.1f} ms, K2 launches {launches['entry']}); the CPU "
+                f"twin path {F_cpu:.7f} (tol 1e-5)")
+            require(launches["entry"] == 1, "entry(): one K2 launch")
+            require(abs(float(F) - F_cpu) <= 1e-5, "entry(): the card equals the CPU")
+
+            # --- the dry run over a one-rank mesh
+            r, launches["dryrun_multichip(1)"], wall = _k2_count(
+                lambda: dryrun_multichip(1))
+            say("17 parallel", f"dryrun_multichip(1): {wall:.2f} s, mean F "
+                f"{r['mean_F']:.6f}, detector fraction "
+                f"{r['qec']['detector_fraction']:.4f}, BB p_L "
+                f"{r['qec']['bb']['p_logical_shot']:.5f}, DE F {r['de']['F']:.6f}; "
+                f"K2 launches {launches['dryrun_multichip(1)']} (the sweep step's "
+                f"expm, 3 DE populations, the best member)")
+            require(launches["dryrun_multichip(1)"] == 5,
+                    "dryrun_multichip(1): five K2 launches")
+
+            _oracle_checks(launches)
+
+            # --- the sharded population objective, P = 1024 (phase 10's)
+            P = 1024
+            app = ApparatusConstraints()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                problem = engine.build_fixed_problem(app, app.make_full_noise())
+            bounds, x0 = forward.get_smooth_jp_bounds_and_x0()
+            pop = _population_near(x0, bounds, P, 0.1, np.random.default_rng(SEED + 10))
+            mesh = make_mesh(axis_names=("pop",))
+            obj = make_population_objective_sharded(problem, "smooth_jp", mesh=mesh)
+            obj1 = engine.make_population_objective(problem, "smooth_jp")
+            obj64 = engine.make_population_objective(problem, "smooth_jp",
+                                                     dtype=torch.complex128)
+            pop_dev = torch.as_tensor(pop, device="cuda")
+            c1, _ = obj1(pop_dev)
+            obj(pop_dev)
+            (cost, metrics), n_k2, _ = _k2_count(lambda: obj(pop_dev))
+            require(n_k2 == 1, "the sharded objective: one K2 launch a call")
+            launches["sharded objective, 6 calls"] = n_k2
+            same = bool(torch.equal(cost, c1))
+            times = []
+            for _ in range(5):
+                _, n_k2, t = _k2_count(lambda: obj(pop_dev))
+                require(n_k2 == 1, "the sharded objective: one K2 launch a call")
+                launches["sharded objective, 6 calls"] += n_k2
+                times.append(t)
+            med = statistics.median(times)
+            say("17 parallel", f"make_population_objective_sharded, smooth_jp, P = "
+                f"{P} on a one-rank 'pop' mesh: median {med * 1e3:.3f} ms of 5 calls "
+                f"-> {P / med:.1f} evaluations/s (times ms "
+                f"{[round(t * 1e3, 3) for t in times]}); one K2 launch a call; costs "
+                f"equal to the unsharded objective's on the card: {same}")
+            require(same, "the sharded costs equal the unsharded objective's")
+            _hold_to_c128("smooth_jp (sharded)", problem, "smooth_jp", {}, pop[:8],
+                          cost, metrics, obj64, 1e-4, phase="17 parallel")
+            res, launches["DE, 2 generations"], wall = _k2_count(
+                lambda: differential_evolution(obj, bounds, x0=x0, popsize=P,
+                                               maxiter=2))
+            say("17 parallel", f"differential_evolution over the sharded objective, "
+                f"P = {P}, 2 generations: {wall:.2f} s, K2 launches "
+                f"{launches['DE, 2 generations']}, best cost per generation "
+                f"{[round(float(h), 4) for h in res.history]}")
+            require(launches["DE, 2 generations"] == 3 and len(res.history) == 2
+                    and bool(np.all(np.diff(res.history) <= 0.0)),
+                    "DE: one K2 launch a generation, history does not increase")
+            del obj, obj1, obj64, cost, metrics, pop_dev
+            torch.cuda.empty_cache()
+
+            # --- the sharded BB-LDPC Monte Carlo: gross code, 65536 shots a rank
+            Hx, Hz = gross_code()
+            kw = dict(p=1e-2, shots_per_device=65536, n_iters=50, mesh=make_mesh())
+            run_bb_memory_sharded(Hx, Hz, seed=SEED, **kw)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            bb = run_bb_memory_sharded(Hx, Hz, seed=SEED + 1, **kw)
+            wall = time.perf_counter() - t0
+            lo, hi = wilson_ci(bb["n_fail"], bb["shots"])
+            say("17 parallel", f"run_bb_memory_sharded {bb['code']}, p = 1e-2, "
+                f"{bb['shots']} shots on {bb['n_devices']} rank, 50 iterations: "
+                f"{wall:.3f} s -> {bb['shots'] / wall:.1f} shots/s; p_L "
+                f"{bb['p_logical_shot']:.4e} ({bb['n_fail']} errors), 95% CI "
+                f"[{lo:.4e}, {hi:.4e}]; converged {bb['bp_converged_frac']:.6f}; "
+                f"syndrome weight {bb['syndrome_weight_mean']:.5f} a check; peak "
+                f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            require(bb["shots"] == 65536 and 0.0 <= bb["p_logical_shot"] < 0.5,
+                    "BB sharded Monte Carlo: a physical p_L")
+            torch.cuda.empty_cache()
+            _bb_body_card_vs_cpu(Hx, Hz, 1e-2, 50, 4096)
+        finally:
+            dist.destroy_process_group()
+
+    # --- K2 at the entry point's (32, 81) complex64 squaring inputs
+    L0, Cp, Cm, phases, dts, _, _ = build_small_problem()
+    A = segment_liouvillians(*[torch.as_tensor(a, device="cuda") for a in (L0, Cp, Cm)],
+                             Schedule(np.ones(32), phases, dts))
+    As, s = _scale(A, _THETA16)
+    R = _taylor16(As, torch.eye(81, dtype=A.dtype, device="cuda").expand(A.shape))
+    row = _k2_at(R.contiguous(), s, 12, "(32, 81) complex64 [entry(), the sweep step]",
+                 launch_ms, 50, phase="17 parallel", tol=1e-5)
+    total = sum(launches.values())
+    say("17 parallel", f"K2 launches in this phase's counted runs: {launches} "
+        f"(total {total}); phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return [_k2_entry(row, "(32, 81, complex64)", total,
+                      "phase 17: entry(), dryrun_multichip(1), the oracle checks, "
+                      "the sharded objective and its DE",
+                      "B=32 N=81 complex64, s from the segments' norms (resident route)")]
+
+
+def phase_surgery():
+    """Phase 18: lattice surgery at d = 5 and the NN decoder, on the card
+    (torch ops; the native C++ matcher on the host). No kernel of the port
+    runs here."""
+    import copy
+    import torch
+    from noisyquantumsimulator_tpu_torch.qec import native
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    from noisyquantumsimulator_tpu_torch.qec.lattice_surgery import run_zz_surgery
+    from noisyquantumsimulator_tpu_torch.qec.nn_decoder import train_nn_decoder
+    from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
+
+    t_phase = time.perf_counter()
+    native.build()
+    N = 131072
+    for p in (0.0, 1e-3):
+        t0 = time.perf_counter()
+        r = run_zz_surgery(5, p=p, shots=N, seed=SEED)
+        wall = time.perf_counter() - t0
+        if p == 0.0:
+            say("18 surgery", f"run_zz_surgery(5, p=0): {N} shots, "
+                f"{r['n_detectors']} detectors: detector fraction "
+                f"{r['detector_fraction']}, raw rates {r['zz_error_rate_raw']}, "
+                f"{r['patch1_logical_error_raw']}, {r['patch2_logical_error_raw']}")
+            require(r["detector_fraction"] == 0.0 and r["zz_error_rate_raw"] == 0.0
+                    and r["patch1_logical_error_raw"] == 0.0
+                    and r["patch2_logical_error_raw"] == 0.0,
+                    "surgery at p = 0: every detector and observable is zero")
+            continue
+        parts = []
+        for name in ("zz_error_rate", "patch1_logical_error", "patch2_logical_error"):
+            raw, dec = (round(r[name + k] * N) for k in ("_raw", "_decoded"))
+            lo, hi = wilson_ci(dec, N)
+            parts.append(f"{name} raw {raw / N:.5f} ({raw}), decoded {dec / N:.5f} "
+                         f"({dec}, 95% CI [{lo:.5f}, {hi:.5f}])")
+            require(dec < raw, f"surgery d = 5: {name} decoded below raw")
+        say("18 surgery", f"run_zz_surgery(5, p=1e-3): {N} shots, {r['n_detectors']} "
+            f"detectors, {r['n_zz_records']} ZZ records, detector fraction "
+            f"{r['detector_fraction']:.5f}: {wall:.2f} s (native decode "
+            f"{r['decode_seconds']:.2f} s); " + "; ".join(parts))
+
+    # d = 3 runs twice: the process's first training call and a repeat
+    for d, turn in ((3, "first call"), (3, "repeat"), (5, "first call")):
+        t0 = time.perf_counter()
+        dec, ev = train_nn_decoder(d=d, p=3e-3, steps=300, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lo, hi = wilson_ci(round(ev["p_logical_nn"] * ev["shots"]), ev["shots"])
+        say("18 surgery", f"train_nn_decoder(d={d}, p=3e-3, steps=300) on the card, "
+            f"{turn} (batch 4096, {dec.layers[0].in_features} features): {wall:.2f} s; "
+            f"p_L nn {ev['p_logical_nn']:.5f} (95% CI [{lo:.5f}, {hi:.5f}]), trivial "
+            f"{ev['p_logical_trivial']:.5f}, ratio "
+            f"{ev['p_logical_nn'] / max(ev['p_logical_trivial'], 1e-12):.3f}; loss "
+            f"{[round(h, 4) for h in dec.history]}")
+        if d == 3 and turn == "first call":
+            require(ev["p_logical_nn"] < 0.6 * ev["p_logical_trivial"],
+                    "NN decoder d = 3: p_L below 0.6 of the trivial decoder's")
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED + 18)
+            dets = build_fast_sampler(dec.circuit, 4096, "cuda")(gen)["detectors"]
+            cpu = copy.deepcopy(dec).to("cpu")
+            with torch.no_grad():
+                lg, lc = dec(dets).cpu(), cpu(dets.cpu())
+            err = float((lg - lc).abs().max())
+            say("18 surgery", f"NN logits on 4096 rows, the card vs the same weights "
+                f"on the CPU: max|d logit| {err:.3e} (tol 1e-5; max|logit| "
+                f"{float(lc.abs().max()):.3f})")
+            require(err <= 1e-5, "NN logits: the card equals the CPU")
+    say("18 surgery", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
-                                       "primitives", "surface", "architecture"),
+                                       "primitives", "surface", "architecture",
+                                       "parallel", "surgery"),
                     help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
                          "(channel), 1, 2 and 13 (primitives), 1, 2 and 14 "
-                         "(surface) or 1, 2, 15 and 16 (architecture) only, "
-                         "and print no result line")
+                         "(surface), 1, 2, 15 and 16 (architecture), 1, 2 and 17 "
+                         "(parallel) or 1, 2 and 18 (surgery) only, and print no "
+                         "result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -2305,6 +2665,12 @@ def main(argv=None) -> int:
         phase_cavity(launch_ms)
         phase_architecture()
         return 0
+    if args.only == "parallel":
+        phase_parallel(launch_ms)
+        return 0
+    if args.only == "surgery":
+        phase_surgery()
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -2325,6 +2691,8 @@ def main(argv=None) -> int:
     phase_surface()
     kernels.extend(phase_cavity(launch_ms))
     phase_architecture()
+    kernels.extend(phase_parallel(launch_ms))
+    phase_surgery()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

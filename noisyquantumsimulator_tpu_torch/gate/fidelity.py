@@ -29,6 +29,17 @@ def state_fidelity(rho: torch.Tensor, target_ket: torch.Tensor) -> torch.Tensor:
     return torch.einsum("i,...ij,j->...", t.conj(), rho, t).real
 
 
+def dominant_phase_amp(rho: torch.Tensor, target_ket):
+    """The original project's eigenvector extraction: the phase and
+    magnitude of the target's overlap with rho's dominant eigenvector. Kept
+    for diagnostics; not grad-safe (eigh of a nearly rank-1 matrix) and it
+    resolves only the overlap's sign."""
+    _, evecs = torch.linalg.eigh(rho)
+    t = torch.as_tensor(target_ket, device=rho.device).to(rho.dtype)
+    ov = torch.einsum("i,...i->...", t.conj(), evecs[..., :, -1])
+    return ov.angle(), ov.abs()
+
+
 def controlled_phase_from_superposition(rho_plus: torch.Tensor, dim: int):
     """Controlled phase and single-state phases from the evolved |++> state
     (..., D, D). Returns (controlled, (phi01, phi10, phi11),
@@ -102,6 +113,14 @@ def compute_cz_fidelity(rhos: torch.Tensor, kets: Dict[str, np.ndarray],
     return fids, avg, phase_info
 
 
+def bell_state_fidelity(rho_plus: torch.Tensor, kets: Dict[str, np.ndarray]):
+    """Fidelity of the evolved |++> state against the ideal CZ output
+    (|00> + |01> + |10> - |11>)/2: a single-number entanglement diagnostic."""
+    k = {n: torch.as_tensor(kets[n], device=rho_plus.device).to(rho_plus.dtype)
+         for n in ("00", "01", "10", "11")}
+    return state_fidelity(rho_plus, 0.5 * (k["00"] + k["01"] + k["10"] - k["11"]))
+
+
 def mixed_state_fidelity(rho: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     """Uhlmann fidelity F(rho, sigma) = (Tr sqrt(sqrt(rho) sigma sqrt(rho)))^2
     via eigendecompositions (batched)."""
@@ -112,5 +131,6 @@ def mixed_state_fidelity(rho: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor
     return torch.sqrt(torch.clamp(em, min=0.0)).sum(dim=-1) ** 2
 
 
-__all__ = ["state_fidelity", "controlled_phase_from_superposition",
-           "compute_cz_fidelity", "mixed_state_fidelity"]
+__all__ = ["state_fidelity", "dominant_phase_amp",
+           "controlled_phase_from_superposition", "compute_cz_fidelity",
+           "bell_state_fidelity", "mixed_state_fidelity"]

@@ -162,6 +162,13 @@ def expm(A: torch.Tensor, max_squarings: Optional[int] = None,
     return R.reshape(*batch, D, D)
 
 
+def expm_apply(A: torch.Tensor, X: torch.Tensor,
+               max_squarings: Optional[int] = None) -> torch.Tensor:
+    """exp(A) @ X (the reference computes exp(A) whole as well; kept for its
+    API)."""
+    return expm(A, max_squarings=max_squarings) @ X
+
+
 def chained_product(U: torch.Tensor) -> torch.Tensor:
     """Ordered product U[n-1] @ ... @ U[1] @ U[0] by log-depth pairwise
     reduction: O(log n) batched matmuls instead of an O(n) loop.
@@ -175,4 +182,5 @@ def chained_product(U: torch.Tensor) -> torch.Tensor:
     return U[0]
 
 
-__all__ = ["expm", "chained_product", "squarings_for", "SquaringLimitError"]
+__all__ = ["expm", "expm_apply", "chained_product", "squarings_for",
+           "SquaringLimitError"]

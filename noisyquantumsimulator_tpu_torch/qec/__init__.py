@@ -13,6 +13,9 @@ executor).
   cluster_matcher  exact matching by cluster decomposition on the device
   memory           run_memory: sample -> decode -> logical error rate
   erasure          heralded-erasure peeling + matching
+  lattice_surgery  Z (x) Z measurement by rough merge/split (host build),
+                   sampled and decoded on the device
+  nn_decoder       MLP decoder over detector bits, trained on the device
   ldpc             BB codes, min-sum BP (dense, edge-list, slot layout), OSD-0
   bp_cuda          kernel K3: the slot-layout check-node update, and its twin
   dem_decoder      tiered BP on the DEM + host OSD-0
@@ -29,20 +32,20 @@ executor).
 Class names drop the reference's `TPU` suffix: ExactMatcherTPU ->
 ExactMatcher, HybridMatcherTPU -> HybridMatcher, TieredMatcherTPU ->
 TieredMatcher, WindowMatcherTPU -> WindowMatcher, ClusterMatcherTPU ->
-ClusterMatcher. Function names are the reference's. Not ported yet:
-lattice_surgery, nn_decoder.
+ClusterMatcher. Function names are the reference's.
 """
 from . import (bp_cuda, circuits, cluster_matcher, color_code,  # noqa: F401
                compiler, decoders, dem, dem_decoder, erasure, exact_matcher,
-               executor, fast_sampler, ldpc, ldpc_layout, memory, native,
-               pauli_frame, scheduler, surface_code, topology,
-               window_matcher)
+               executor, fast_sampler, lattice_surgery, ldpc, ldpc_layout,
+               memory, native, nn_decoder, pauli_frame, scheduler,
+               surface_code, topology, window_matcher)
 from .dem_decoder import DemBPDecoder, decoder_from_numpy  # noqa: F401
 from .fast_sampler import build_fast_sampler, sample_circuit_fast  # noqa: F401
 from .ldpc import (bb_memory_circuit, gross_code,  # noqa: F401
                    run_bb_circuit_memory, small_bb_code)
 from .erasure import run_erasure_memory  # noqa: F401
 from .executor import execute  # noqa: F401
+from .lattice_surgery import run_zz_surgery, zz_merge_split_circuit  # noqa: F401
 from .memory import run_memory, MemoryResult  # noqa: F401
 from .surface_code import memory_z_circuit, build_layout, code_metrics  # noqa: F401
 from .exact_matcher import (exact_matcher_for_circuit,  # noqa: F401

@@ -141,6 +141,144 @@ def evolve_rhos_phased_many(U_base, g, phases_bn, rho0s):
     return v.reshape(B, S, D, D)
 
 
+def total_propagator_phased(U_base, g, phases):
+    """exp(L(phi_n) dt) ... exp(L(phi_1) dt) from ONE base propagator, by
+    the identity exp(L(phi) dt) = S(phi) U_base S(-phi) with
+    S(phi) = diag(e^{i phi g}) (ops/phase_frame.py). The product telescopes
+    into column-rescaled copies of U_base:
+
+        U_tot = S(phi_n) [ W_n @ ... @ W_1 ] S(-phi_1),
+        W_1   = U_base,
+        W_k   = U_base @ diag(e^{i (phi_{k-1} - phi_k) g})   (k >= 2)
+
+    contracted as the reference's tree, every node kept as ``U_base @ X``:
+    level 0 is elementwise, W_o @ W_e = U_base @ (U_base * outer(d_o, d_e));
+    level k takes one shared-weight product X_b @ U_base for the whole level
+    and one batched product per pair, (U_base X_b)(U_base X_a) =
+    U_base @ ((X_b @ U_base) @ X_a).
+
+    U_base: (D^2, D^2) complex; g: (D^2,) integer-valued generator;
+    phases: (n,)."""
+    dtype = U_base.dtype
+    D2 = U_base.shape[-1]
+    g = _host(g, U_base)
+    ph = _host(phases, U_base)
+    dphi = torch.cat([torch.zeros_like(ph[:1]), ph[:-1] - ph[1:]])
+    d = torch.exp(1j * dphi[:, None] * g[None, :]).to(dtype)      # (n, D^2)
+    n = d.shape[0]
+    if n == 1:
+        core = U_base * d[0][None, :]
+    else:
+        half = n // 2
+        de, do = d[0:2 * half:2], d[1:2 * half:2]
+        X = U_base[None] * (do[:, :, None] * de[:, None, :])       # (half, D2, D2)
+        if n % 2 == 1:
+            # odd leaf W_n = U_base @ diag(d_n): X = diag(d_n)
+            X = torch.cat([X, torch.diag(d[-1])[None]])
+        m = X.shape[0]
+        while m > 1:
+            h = m // 2
+            Xe, Xo = X[0:2 * h:2], X[1:2 * h:2]
+            T = (Xo.reshape(h * D2, D2) @ U_base).reshape(h, D2, D2)
+            prod = T @ Xe
+            X = torch.cat([prod, X[-1:]]) if m % 2 == 1 else prod
+            m = X.shape[0]
+        core = U_base @ X[0]
+    row = torch.exp(1j * ph[-1] * g).to(dtype)
+    col = torch.exp(-1j * ph[0] * g).to(dtype)
+    return row[:, None] * core * col[None, :]
+
+
+def evolve_rhos_trajectory(L0, Cp, Cm, schedule: Schedule, rho0s, Cd=None):
+    """Like evolve_rhos, but returns every intermediate state,
+    (n + 1, B, D, D): one batched expm of the n segments, then a sequential
+    loop of (B, D^2) @ (D^2, D^2) products that keeps each state."""
+    B, D, _ = rho0s.shape
+    U = expm(segment_liouvillians(L0, Cp, Cm, schedule, Cd))
+    v = rho0s.reshape(B, D * D)
+    traj = [v]
+    for Uk in U:
+        v = v @ Uk.T
+        traj.append(v)
+    return torch.stack(traj).reshape(len(traj), B, D, D)
+
+
+# --------------------------------------------------------------------------
+# schedule builders: tensor functions, differentiable in the protocol
+# parameters. Parameters may be tensors (their dtype and device carry over)
+# or host numbers (float64 CPU tensors).
+# --------------------------------------------------------------------------
+
+def _param(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if torch.is_tensor(x):
+        return x
+    if like is None:
+        return torch.as_tensor(np.asarray(x, dtype=np.float64))
+    return torch.as_tensor(np.asarray(x), dtype=like.dtype, device=like.device)
+
+
+def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.ones(n, dtype=like.dtype, device=like.device)
+
+
+def lp_square_schedule(xi_phase, tau_single, n_pulses: int = 2) -> Schedule:
+    """Two square pulses; the second carries the LP phase jump xi. Exact:
+    one segment per pulse."""
+    xi = _param(xi_phase)
+    tau = _param(tau_single, xi)
+    return Schedule(_ones(2, xi), torch.stack([torch.zeros_like(xi), xi]),
+                    tau * _ones(2, xi))
+
+
+def smooth_jp_schedule(A, omega_mod, phi_offset, tau_total,
+                       n_steps: int = 300) -> Schedule:
+    """Midpoint-sampled sinusoidal phase modulation
+    phi(t) = A cos(omega_mod t - phi_offset); the delta0 t slope is a static
+    detuning in L0, as in the reference."""
+    A = _param(A)
+    dt = _param(tau_total, A) / n_steps
+    k = torch.arange(n_steps, dtype=A.dtype, device=A.device)
+    t_mid = (k + 0.5) * dt
+    phases = A * torch.cos(_param(omega_mod, A) * t_mid - _param(phi_offset, A))
+    return Schedule(_ones(n_steps, A), phases, dt * _ones(n_steps, A))
+
+
+def bangbang_schedule(switching_times, phases, omega_tau, Omega,
+                      max_segments: Optional[int] = None) -> Schedule:
+    """Piecewise-constant phases; boundaries [0, t_1..t_{N-1}, omega_tau]
+    in dimensionless Omega t, converted to seconds. Exact: one segment per
+    phase. Zero- or negative-length segments get dt = 0 (exp(0) = I), the
+    reference's skip of segments below 1e-18 s without dynamic shapes."""
+    st = _param(switching_times)
+    ph = _param(phases, st)
+    bounds = torch.cat([torch.zeros_like(st[:1]), st,
+                        _param(omega_tau, st).to(st.dtype).reshape(1)])
+    dts = torch.clamp(bounds[1:] - bounds[:-1], min=0.0) / Omega
+    return Schedule(_ones(ph.shape[0], st), ph, dts)
+
+
+def shaped_lp_schedule(envelope_fn, xi_phase, tau_single,
+                       n_steps: int = 500) -> Schedule:
+    """Two shaped pulses with a midpoint-sampled envelope; the second pulse
+    carries the xi phase. envelope_fn(t_mid) -> amplitude scale."""
+    xi = _param(xi_phase)
+    dt = _param(tau_single, xi) / n_steps
+    t_mid = (torch.arange(n_steps, dtype=xi.dtype, device=xi.device) + 0.5) * dt
+    env = envelope_fn(t_mid)
+    return Schedule(torch.cat([env, env]),
+                    torch.cat([torch.zeros_like(t_mid), _ones(n_steps, xi) * xi]),
+                    dt * _ones(2 * n_steps, xi))
+
+
+def concat_schedules(*schedules: Schedule) -> Schedule:
+    return Schedule(torch.cat([_param(s.amps) for s in schedules]),
+                    torch.cat([_param(s.phases) for s in schedules]),
+                    torch.cat([_param(s.dts) for s in schedules]))
+
+
 __all__ = ["Schedule", "real_dtype", "segment_liouvillians",
-           "total_propagator", "evolve_rhos", "uniform_base_propagator",
-           "evolve_rhos_phased", "evolve_rhos_phased_many"]
+           "total_propagator", "evolve_rhos", "evolve_rhos_trajectory",
+           "uniform_base_propagator", "total_propagator_phased",
+           "evolve_rhos_phased", "evolve_rhos_phased_many",
+           "lp_square_schedule", "smooth_jp_schedule", "bangbang_schedule",
+           "shaped_lp_schedule", "concat_schedules"]

@@ -651,3 +651,116 @@ def test_density_matrix_cuda_matches_cpu(cuda):
     h = DensityMatrixSimulator(c, device="cpu").run()
     for k in ("rho", "measurement_probs"):
         assert float((g[k].cpu() - h[k]).abs().max()) <= 1e-6, k
+
+
+# ---- the multi-device layer on one card, the solver leftovers, the NN decoder
+
+@pytest.fixture(scope="module")
+def nccl_one_rank():
+    """A one-rank NCCL process group (the card is one device)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from noisyquantumsimulator_tpu_torch.parallel import init_rank
+    with tempfile.TemporaryDirectory() as tmp:
+        init_rank(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            yield dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+
+
+def test_sharded_objective_one_rank_nccl(cuda, nccl_one_rank):
+    """13 members over a one-rank "pop" mesh: one K2 launch a call, and the
+    unsharded objective's costs and metrics exactly."""
+    import warnings
+    from noisyquantumsimulator_tpu_torch.optimize import engine
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    from noisyquantumsimulator_tpu_torch.parallel import (
+        make_mesh, make_population_objective_sharded)
+    assert nccl_one_rank == "nccl"
+    app = ApparatusConstraints()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        problem = engine.build_fixed_problem(app, app.make_full_noise())
+    rng = np.random.default_rng(0)
+    pop = np.column_stack([rng.uniform(8.0, 12.0, 13), rng.uniform(0.2, 1.2, 13),
+                           rng.uniform(1.0, 1.5, 13), rng.uniform(4.0, 5.5, 13),
+                           rng.uniform(0.01, 0.03, 13)])
+    obj = make_population_objective_sharded(
+        problem, "smooth_jp", mesh=make_mesh(axis_names=("pop",)), n_steps=48)
+    before = fused_masked_squaring.launches
+    c, m = obj(pop)
+    torch.cuda.synchronize()
+    assert fused_masked_squaring.launches == before + 1
+    c1, m1 = engine.make_population_objective(problem, "smooth_jp", n_steps=48)(pop)
+    assert c.shape == (13,) and c.device.type == "cuda"
+    assert torch.equal(c, c1) and all(torch.equal(m[k], m1[k]) for k in m1)
+
+
+def test_dryrun_multichip_one_rank_cuda(cuda, nccl_one_rank):
+    from noisyquantumsimulator_tpu_torch.graft_entry import dryrun_multichip
+    before = fused_masked_squaring.launches
+    r = dryrun_multichip(1)
+    assert fused_masked_squaring.launches == before + 5
+    assert 0.9 < r["mean_F"] <= 1.0 and 0.0 < r["qec"]["detector_fraction"] < 0.5
+    with pytest.raises(ValueError):
+        dryrun_multichip(2)
+
+
+def test_bb_rank_body_cuda_matches_cpu(cuda):
+    """The same error rows on the card and on the CPU: equal per-shot
+    failures and convergence, but for shots BP leaves at a tied belief."""
+    from noisyquantumsimulator_tpu_torch.parallel import bb_mc
+    from noisyquantumsimulator_tpu_torch.qec.ldpc import small_bb_code
+    Hx, Hz = small_bb_code()
+    rng = np.random.default_rng(2)
+    errors = torch.as_tensor(rng.random((2048, Hz.shape[1])) < 0.02)
+    g = bb_mc.rank_body(errors.to(cuda), bb_mc.bb_tables(Hx, Hz, 0.02, 30, cuda))
+    c = bb_mc.rank_body(errors, bb_mc.bb_tables(Hx, Hz, 0.02, 30, "cpu"))
+    assert torch.equal(g["syndrome"].cpu(), c["syndrome"])
+    diff = ((g["fail"].cpu() != c["fail"]) | (g["converged"].cpu() != c["converged"]))
+    for i in torch.nonzero(diff)[:, 0].tolist():
+        assert float(c["belief"][i].abs().min()) < 1e-4, i
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_evolve_rhos_trajectory_cuda_matches_cpu(cuda, dtype):
+    from noisyquantumsimulator_tpu_torch.graft_entry import build_small_problem
+    from noisyquantumsimulator_tpu_torch.solver.propagator import (
+        Schedule, evolve_rhos, evolve_rhos_trajectory)
+    L0, Cp, Cm, ph, dts, rho0s, _ = build_small_problem(32, dtype=dtype)
+    sched = Schedule(np.ones(32), ph, dts)
+    out = {}
+    for dev in (cuda, "cpu"):
+        ops = [torch.as_tensor(a, device=dev) for a in (L0, Cp, Cm, rho0s)]
+        before = fused_masked_squaring.launches
+        out[str(dev)] = evolve_rhos_trajectory(*ops[:3], sched, ops[3]).cpu()
+        if dev == cuda:
+            assert fused_masked_squaring.launches == before + 1
+            last = evolve_rhos(*ops[:3], sched, ops[3]).cpu()
+    g, c = out[str(cuda)], out["cpu"]
+    assert g.shape == (33, 5, 9, 9)
+    assert float((g - c).abs().max()) <= TOL[dtype] * float(c.abs().max())
+    assert float((g[-1] - last).abs().max()) <= TOL[dtype]
+
+
+def test_nn_decoder_logits_cuda_matches_cpu(cuda):
+    import copy
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    from noisyquantumsimulator_tpu_torch.qec.nn_decoder import NNDecoder
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import memory_z_circuit
+    dec = NNDecoder(memory_z_circuit(3, 3, p=3e-3), device=cuda)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    dets = build_fast_sampler(dec.circuit, 4096, cuda)(gen)["detectors"]
+    cpu = copy.deepcopy(dec).to("cpu")
+    with torch.no_grad():
+        g, c = dec(dets).cpu(), cpu(dets.cpu())
+    assert float((g - c).abs().max()) <= 1e-5
+    clear = (c.abs() > 1e-4).numpy()
+    assert np.array_equal(dec.decode_batch(dets)[clear],
+                          cpu.decode_batch(dets.cpu())[clear])
