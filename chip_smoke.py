@@ -5,7 +5,8 @@ gradient paths, the channel / calibration bridge, the Layer-1 primitive
 backends (neutral atoms, trapped ions, cavity QED), the surface-code memory
 path, the architecture loop (topology -> compiler -> scheduler ->
 executor, and the exact circuit simulators), the multi-device layer on a
-one-rank NCCL group, lattice surgery and the NN decoder.
+one-rank NCCL group, lattice surgery, the NN decoder, and the reference's
+bench.py records through the port's bench module.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
@@ -17,6 +18,7 @@ one-rank NCCL group, lattice surgery and the NN decoder.
     python3 chip_smoke.py --only architecture  (phases 1, 2, 15 and 16)
     python3 chip_smoke.py --only parallel    (phases 1, 2 and 17)
     python3 chip_smoke.py --only surgery     (phases 1, 2 and 18)
+    python3 chip_smoke.py --only bench       (phases 1, 2 and 19)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -154,6 +156,19 @@ each; any failure raises and the script exits non-zero:
               0.6 of the trivial decoder's p_L, its logits equal the CPU
               module's on 4096 rows (1e-5); d = 5 training timed. No kernel of
               the port runs here (torch ops and host C++)
+ 19. bench      the reference's bench.py records through the port's
+              noisyquantumsimulator_tpu_torch.bench, in this process: main at
+              dim 3 (batch 32768) and dim 4 (batch 8192) with the zvode
+              baseline and the four parity tiers, main_bb (65536 shots, 3
+              reps); each record printed, its keys equal to the reference's
+              (written out below), K1, K2 and K3 launched during the records;
+              the 32-bit tiers <= 1e-4 at dim 3 and <= 2e-4 at dim 4, the
+              64-bit tiers <= 1e-8, mean F in 0.97-0.99, p_L <= 1e-4;
+              validate_bangbang.run and diagnose_bb.sweep on the card (all
+              checks pass, best area within 0.5 of 22.08; equal to the CPU's);
+              compact_summary_line of the three records <= 1500 characters;
+              K2 against its twin and matrix_power at the complex128 tier's
+              squaring inputs, (1, 81) and (1, 256), with their bounds
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -164,7 +179,6 @@ from __future__ import annotations
 import json
 import re
 import statistics
-import subprocess
 import sys
 import time
 import warnings
@@ -186,6 +200,19 @@ K2_REPLACES = "noisyquantumsimulator_tpu/ops/expm_pallas.py:35"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
+# the keys of the reference's bench.py records (main, main_bb), in its order;
+# the port's gate record adds power_limit after device
+GATE_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_sims_per_sec",
+             "baseline", "batch", "n_segments", "hilbert_dim", "backend",
+             "device", "power_limit", "dtype", "matmul_precision",
+             "mean_fidelity", "parity_err_throughput_path_vs_zvode",
+             "parity_err_c64_vs_zvode", "parity_err_real_f32_vs_zvode",
+             "parity_err_x64_vs_zvode", "parity_err_f64_device_vs_zvode",
+             "f64_device_sims_per_sec", "achieved_useful_gflops", "engine")
+BB_KEYS = ("metric", "value", "unit", "vs_baseline", "code", "rounds", "p",
+           "n_detectors", "n_mechanisms", "backend", "decoder",
+           "e2e_p_logical_shot", "e2e_n_errors", "e2e_n_decoded",
+           "e2e_p_logical_ci95", "bp_nonconverged_frac", "seed")
 # K2 at the shapes where it does real work: (B, N, dtype, max_squarings,
 # squaring counts, who launches it). "mixed" draws s uniformly from 0..6.
 K2_BATCHED = (
@@ -265,16 +292,14 @@ def phase_device():
     import torch
     if not torch.cuda.is_available():
         return None
+    from noisyquantumsimulator_tpu_torch.bench import card
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    require(smi.returncode == 0, f"nvidia-smi exited {smi.returncode}")
+    smi_name, limit = card()
+    require(smi_name is not None, "nvidia-smi reads the card's name and power limit")
     say("1 device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{count} device(s); device 0: {name}")
-    for line in smi.stdout.strip().splitlines():
-        print(line.strip(), flush=True)
+    print(f"{smi_name}, {limit}", flush=True)
     return name, count
 
 
@@ -2626,18 +2651,150 @@ def phase_surgery():
     say("18 surgery", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def phase_bench(launch_ms):
+    """Phase 19: the reference's bench.py records (gate_dim3, gate_dim4,
+    bb_ldpc) through the port's bench module, and the two bang-bang check
+    scripts, on the card. The records time themselves (bench._sims_per_sec,
+    main_bb's loop); this phase checks them and counts the kernels."""
+    import torch
+    from noisyquantumsimulator_tpu_torch import bench, diagnose_bb, validate_bangbang
+    from noisyquantumsimulator_tpu_torch.gate.simulate import plan_squaring_bound
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda
+    from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
+        evolve_real_phased_many_cuda)
+
+    t_phase = time.perf_counter()
+    records, c128_launches = {}, {}
+    f64_tier = bench.measure_parity_f64_device
+
+    def counted_f64_tier(plan, device="cuda"):
+        before = fused_masked_squaring.launches
+        try:
+            return f64_tier(plan, device)
+        finally:
+            c128_launches[plan.hilbert_space_dim] = (
+                fused_masked_squaring.launches - before)
+
+    # --- the main path, counted: each record runs between reset and read
+    bench.measure_parity_f64_device = counted_f64_tier
+    try:
+        for name, dim, batch, tol32 in (("gate_dim3", 3, 32768, 1e-4),
+                                        ("gate_dim4", 4, 8192, 2e-4)):
+            fused_masked_squaring.launches = 0
+            evolve_real_phased_many_cuda.launches = 0
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                r = bench.main(batch=batch, dim=dim)
+            wall = time.perf_counter() - t0
+            k1, k2 = (evolve_real_phased_many_cuda.launches,
+                      fused_masked_squaring.launches)
+            records[name] = r
+            say("19 bench", f"{name}: {r['value']} sims/s (batch {batch}, mean of "
+                f"10 queued steps), zvode baseline {r['baseline_sims_per_sec']} "
+                f"sims/s, vs_baseline {r['vs_baseline']}; parity vs zvode: c64 "
+                f"{r['parity_err_c64_vs_zvode']:.3e}, real f32 "
+                f"{r['parity_err_real_f32_vs_zvode']:.3e}, host x64 "
+                f"{r['parity_err_x64_vs_zvode']:.3e}, c128 on the card "
+                f"{r['parity_err_f64_device_vs_zvode']:.3e} "
+                f"({r['f64_device_sims_per_sec']} sims/s); mean F "
+                f"{r['mean_fidelity']}; {r['achieved_useful_gflops']} useful "
+                f"GFLOP/s; launches K1 {k1}, K2 {k2} (c128 tier {c128_launches[dim]});"
+                f" record wall {wall:.1f} s")
+            require(tuple(r) == GATE_KEYS, f"{name}: the reference's record keys")
+            require(k1 > 0 and k2 > 0 and c128_launches[dim] > 0,
+                    f"{name}: K1 and K2 launched during the record")
+            require(0.97 <= r["mean_fidelity"] <= 0.99, f"{name}: mean F in 0.97-0.99")
+            for k in ("parity_err_c64_vs_zvode", "parity_err_real_f32_vs_zvode"):
+                require(r[k] <= tol32, f"{name}: {k} {r[k]:.3e} <= {tol32:g}")
+            for k in ("parity_err_x64_vs_zvode", "parity_err_f64_device_vs_zvode"):
+                require(r[k] <= 1e-8, f"{name}: {k} {r[k]:.3e} <= 1e-8")
+            require(r["backend"] == "cuda" and r["value"] > 0, f"{name}: on the card")
+    finally:
+        bench.measure_parity_f64_device = f64_tier
+
+    bp_cuda.c2v.launches = 0
+    t0 = time.perf_counter()
+    r = bench.main_bb(shots=65536, reps=3)
+    wall = time.perf_counter() - t0
+    k3 = bp_cuda.c2v.launches
+    records["bb_ldpc"] = r
+    lo, hi = r["e2e_p_logical_ci95"]
+    say("19 bench", f"bb_ldpc: {r['value']} shots/s; p_L {r['e2e_p_logical_shot']:.3e} "
+        f"({r['e2e_n_errors']} errors in {r['e2e_n_decoded']}, 95% Wilson CI "
+        f"[{lo:.3e}, {hi:.3e}]); non-converged {r['bp_nonconverged_frac']:.4e}; "
+        f"K3 launches {k3} (warm-up rep included); record wall {wall:.1f} s")
+    require(tuple(r) == BB_KEYS, "bb_ldpc: the reference's record keys")
+    require(k3 > 0, "bb_ldpc: K3 launched during the record")
+    require(r["e2e_p_logical_shot"] <= 1e-4, "bb_ldpc: p_L <= 1e-4")
+
+    # --- the two scripts on the card, against the same on the CPU
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    v = validate_bangbang.run("cuda")
+    wall, k2 = time.perf_counter() - t0, fused_masked_squaring.launches
+    v_cpu = validate_bangbang.run("cpu")
+    dv = max(abs(v[k] - v_cpu[k]) for k in ("F_a", "F_b", "F_smooth"))
+    say("19 bench", f"validate_bangbang on the card: F {v['F_a']:.6f} / {v['F_b']:.6f}"
+        f" / smooth {v['F_smooth']:.6f}, V/Omega {v['V_over_Omega']:.1f}, "
+        f"controlled phase {v['controlled_phase_deg']:.2f} deg, checks {v['pass']}; "
+        f"{wall:.2f} s, K2 launches {k2}; max|card - CPU| {dv:.3e} (tol 1e-10)")
+    require(all(v["pass"]), "validate_bangbang: ALL PASS")
+    require(k2 > 0, "validate_bangbang: K2 launched")
+    require(dv <= 1e-10, "validate_bangbang: the card equals the CPU")
+    fused_masked_squaring.launches = 0
+    t0 = time.perf_counter()
+    d = diagnose_bb.sweep("cuda")
+    wall, k2 = time.perf_counter() - t0, fused_masked_squaring.launches
+    dd = float(np.abs(d["avg_fidelity"] - diagnose_bb.sweep("cpu")["avg_fidelity"]).max())
+    say("19 bench", f"diagnose_bb on the card: V/Omega {d['V_over_Omega']:.1f}; best "
+        f"area {d['best_area']:.2f} (F {d['best_fidelity']:.4f}; validated "
+        f"{diagnose_bb.VALIDATED_AREA}); F over the 17 areas "
+        f"{[round(float(x), 4) for x in d['avg_fidelity']]}; {wall:.2f} s, K2 "
+        f"launches {k2}; max|card - CPU| {dd:.3e} (complex128, tol 1e-10)")
+    require(abs(d["best_area"] - diagnose_bb.VALIDATED_AREA) <= 0.5,
+            "diagnose_bb: best area within one grid step of 22.08")
+    require(k2 == 1, "diagnose_bb: one K2 launch for the whole sweep")
+    require(dd <= 1e-10, "diagnose_bb: the card equals the CPU")
+
+    line = bench.compact_summary_line(dict(records["gate_dim3"], records=records))
+    say("19 bench", f"compact summary line ({len(line)} characters): {line}")
+    require(len(line) <= 1500, "compact summary line <= 1500 characters")
+
+    # --- K2 at the complex128 tier's squaring inputs (not counted)
+    out = []
+    for dim in (3, 4):
+        plan = _plan(dim)
+        ms = plan_squaring_bound(plan) + 1
+        A = torch.as_tensor((plan.L0 + plan.schedule.amps[0] * (plan.Cp + plan.Cm))
+                            * plan.schedule.dts[0], device="cuda")[None]
+        R, s = _pade_inputs(A, ms)
+        N = R.shape[-1]
+        route = "resident" if N == 81 else "tiled"
+        row = _k2_at(R, s, ms, f"(1, {N}) complex128 [the c128 parity tier, dim "
+                     f"{dim}, {route}]", launch_ms, 50 if N == 81 else 20,
+                     phase="19 bench")
+        out.append(_k2_entry(row, f"(1, {N}, complex128)", c128_launches[dim],
+                             f"phase 19: the complex128 parity tier of gate_dim{dim}",
+                             f"B=1 N={N} complex128, max_squarings {ms} = "
+                             f"plan_squaring_bound + 1 ({route} route)"))
+    say("19 bench", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
                                        "primitives", "surface", "architecture",
-                                       "parallel", "surgery"),
+                                       "parallel", "surgery", "bench"),
                     help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
                          "(channel), 1, 2 and 13 (primitives), 1, 2 and 14 "
                          "(surface), 1, 2, 15 and 16 (architecture), 1, 2 and 17 "
-                         "(parallel) or 1, 2 and 18 (surgery) only, and print no "
-                         "result line")
+                         "(parallel), 1, 2 and 18 (surgery) or 1, 2 and 19 "
+                         "(bench) only, and print no result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -2671,6 +2828,9 @@ def main(argv=None) -> int:
     if args.only == "surgery":
         phase_surgery()
         return 0
+    if args.only == "bench":
+        phase_bench(launch_ms)
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -2693,6 +2853,7 @@ def main(argv=None) -> int:
     phase_architecture()
     kernels.extend(phase_parallel(launch_ms))
     phase_surgery()
+    kernels.extend(phase_bench(launch_ms))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -1,17 +1,21 @@
 """The gate engine's batched phase-scale sweep (the headline workload).
 
-Counterpart of the reference's `bench.py` `build_workload(engine="real")`:
-one "sim" is a full noisy smooth-JP CZ gate simulation (n_steps segments of
-a D^2-dim Lindblad evolution of the four basis states plus |++>). A sweep of
-`batch` sims shares one base propagator:
+Counterpart of the reference's `bench.py` `build_workload`: one "sim" is a
+full noisy smooth-JP CZ gate simulation (n_steps segments of a D^2-dim
+Lindblad evolution of the four basis states plus |++>). A sweep of `batch`
+sims shares one base propagator. engine="real" (the default):
 
   1. U_base = exp((L0 + C+ + C-) dt)            one expm (kernel K2 squares)
   2. U_real = Re(W U_base W^dagger)              real Hermitian basis
   3. the n_steps phase-frame scan of every sim  kernel K1
   4. the CZ fidelity of every sim               batched torch ops
 
+engine="complex" keeps step 1 and runs the phase-frame scan on the complex
+coordinates (`solver.propagator.evolve_rhos_phased_many`, torch ops), then
+step 4.
+
 This module builds the sweep and has no timing code of its own; callers
-time `step` (chip_smoke.py does).
+time `step` (`bench.main` and chip_smoke.py do).
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ from .core.configs import SmoothJPSimulationInputs
 from .gate.fidelity import compute_cz_fidelity
 from .gate.simulate import (GatePlan, plan_cz_gate, plan_phase_frame,
                             plan_squaring_bound)
-from .solver.propagator import real_dtype, uniform_base_propagator
+from .solver.propagator import (evolve_rhos_phased_many, real_dtype,
+                                uniform_base_propagator)
 from .solver.real_rep import (build_real_rep, evolve_real_phased_many,
                               from_real_coords, real_propagator_device,
                               to_real_coords)
@@ -33,12 +38,25 @@ from .solver.real_rep import (build_real_rep, evolve_real_phased_many,
 def build_workload(batch: int, n_steps: int = 300,
                    dtype: torch.dtype = torch.complex64, dim: int = 3,
                    device: Union[str, torch.device] = "cuda",
+                   prec: str = "highest", engine: str = "real",
                    ) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
                               torch.Tensor, GatePlan]:
     """(step, scales, plan): step(scales) -> (B,) average CZ fidelities of
     the smooth-JP gate with its phase modulation scaled by each entry of
     `scales`; `scales` is the default sweep of `batch` factors in
-    [0.95, 1.05]."""
+    [0.95, 1.05].
+
+    prec: the reference's matmul precision; the port runs every float32
+    product in full FP32 (TF32 is off, see the package's __init__), so only
+    "highest" is accepted. engine: "real" (kernels K2 and K1) or "complex"
+    (K2, then the complex phase-frame scan)."""
+    if prec != "highest":
+        raise ValueError(
+            f"prec={prec!r}: the port pins full FP32 products (TF32 off), "
+            "the reference's 'highest'; its reduced-precision passes "
+            "('high', 'default') are not ported")
+    if engine not in ("real", "complex"):
+        raise ValueError(f"engine must be 'real' or 'complex', got {engine!r}")
     dev = torch.device(device)
     rdt = real_dtype(dtype)
     plan = plan_cz_gate(SmoothJPSimulationInputs(), n_steps_smooth=n_steps,
@@ -65,6 +83,18 @@ def build_workload(batch: int, n_steps: int = 300,
     kets = {k: cput(v) for k, v in plan.kets.items()}
     scales = torch.linspace(0.95, 1.05, batch, dtype=torch.float64,
                             device=dev).to(rdt)
+
+    if engine == "complex":
+        g_dev = rput(g)
+
+        def step_complex(scales: torch.Tensor) -> torch.Tensor:
+            Ub = uniform_base_propagator(L0, Cp, Cm, amp0, dt0,
+                                         max_squarings=ms)
+            rhos = evolve_rhos_phased_many(Ub, g_dev, scales[:, None] * phases,
+                                           rho0s)
+            return compute_cz_fidelity(rhos, kets)[1]
+
+        return step_complex, scales, plan
 
     def step(scales: torch.Tensor) -> torch.Tensor:
         Ub = uniform_base_propagator(L0, Cp, Cm, amp0, dt0, max_squarings=ms)

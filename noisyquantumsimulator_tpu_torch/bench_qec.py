@@ -285,12 +285,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     a = ap.parse_args(argv)
     rec = main_qec(a.d, a.rounds or a.d, a.p, a.shots, a.decode_shots,
                    a.reps_decode, a.seed, a.device)
+    print(record_line(rec), flush=True)
+    return 0
+
+
+def record_line(rec: dict) -> str:
+    """The record as one compact JSON line under 1500 characters (the top
+    device ops are dropped when they would push it over)."""
     line = json.dumps(rec, separators=(",", ":"))
     if len(line) > 1500:
-        rec.pop("top_device_ops_us")
+        rec = {k: v for k, v in rec.items() if k != "top_device_ops_us"}
         line = json.dumps(rec, separators=(",", ":"))
-    print(line, flush=True)
-    return 0
+    return line
 
 
 if __name__ == "__main__":

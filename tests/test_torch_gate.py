@@ -184,7 +184,8 @@ def _device_defaults():
     default it falls back to when the caller names none."""
     import dataclasses
     import inspect
-    from noisyquantumsimulator_tpu_torch import bench_bb
+    from noisyquantumsimulator_tpu_torch import (bench, bench_bb, diagnose_bb,
+                                                 validate_bangbang)
     from noisyquantumsimulator_tpu_torch.optimize import engine, forward, sweeps
     from noisyquantumsimulator_tpu_torch.qec import dem_decoder, fast_sampler, ldpc
     fns = {"plan_cz_gate": tsim.plan_cz_gate,
@@ -206,7 +207,12 @@ def _device_defaults():
            "run_baseline": forward.run_baseline,
            "protocol_sweep": sweeps.protocol_sweep,
            "hardware_sweep": sweeps.hardware_sweep,
-           "standard_research_sweeps": sweeps.standard_research_sweeps}
+           "standard_research_sweeps": sweeps.standard_research_sweeps,
+           "bench.main": bench.main, "bench.main_bb": bench.main_bb,
+           "bench.main_all": bench.main_all,
+           "bench.measure_parity": bench.measure_parity,
+           "validate_bangbang.run": validate_bangbang.run,
+           "diagnose_bb.sweep": diagnose_bb.sweep}
     out = {k: inspect.signature(f).parameters["device"].default
            for k, f in fns.items()}
     for cls in (tsim.GatePlan, ldpc.BPDecoder, engine.FixedProblem):
@@ -222,7 +228,8 @@ def _device_defaults():
     "GatePlan", "BPDecoder", "build_fixed_problem", "problem_from_numpy",
     "make_spacing_population_objective", "optimize_cz_gate", "run_baseline",
     "protocol_sweep", "hardware_sweep", "standard_research_sweeps",
-    "FixedProblem"])
+    "FixedProblem", "bench.main", "bench.main_bb", "bench.main_all",
+    "bench.measure_parity", "validate_bangbang.run", "diagnose_bb.sweep"])
 def test_entry_points_default_to_the_card(name):
     """The port's entry points run on the card unless the caller asks for
     the CPU (checked without a card: only the declared default)."""

@@ -118,6 +118,8 @@ from noisyquantumsimulator_tpu_torch import primitives
 from noisyquantumsimulator_tpu_torch.primitives import (backend, base,
                                                        calibration_io, gates,
                                                        ion_backend, motion)
+from noisyquantumsimulator_tpu_torch import (bench, bench_qec, diagnose_bb,
+                                             validate_bangbang)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("noisyquantumsimulator_tpu."))
 assert not bad, bad
@@ -130,8 +132,9 @@ print("OK")
 
 def test_import_hygiene_no_jax_no_build():
     """Importing the port and every submodule (the QEC path, bench_bb, the
-    optimizer, the channel bridge and the primitives with their gate
-    engines included) loads no JAX, none of the
+    optimizer, the channel bridge, the primitives with their gate engines,
+    the bench records and the two bang-bang scripts included) loads no JAX,
+    none of the
     JAX package, and starts no process (so neither nvcc nor g++)."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], capture_output=True,
                          text=True, timeout=300)

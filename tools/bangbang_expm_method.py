@@ -24,7 +24,6 @@ name and power limit.
 from __future__ import annotations
 
 import statistics
-import subprocess
 import sys
 import time
 import warnings
@@ -36,6 +35,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
 FIDS = ("avg_fidelity", "f00", "f01", "f10", "f11", "cz_phase_fidelity")
 
@@ -180,9 +180,7 @@ def main() -> int:
               f"{vg_ms:.3f} ms a call, K2 launches per call {vg_launches:g}; max|dF| "
               f"of 8 members against complex128 {dF:.3e}", flush=True)
     _error_terms(problem, x0, bounds)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
+    print(*card(), sep=", ", flush=True)
     return 0
 
 

@@ -19,7 +19,6 @@ and power limit.
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -31,6 +30,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from noisyquantumsimulator_tpu_torch import _kernels  # noqa: E402
+from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
 K1_SOURCES = (_kernels.SRC_DIR / "phase_scan.cu", _kernels.SRC_DIR / "nqs_errors.cu")
 PEAK_SOURCES = (ROOT / "tools" / "mma_tf32_peak.cu",
@@ -140,10 +140,7 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"mma.sync.m16n8k8 TF32 alone: {mma_peak_tflops(peak_lib, sms):.1f} "
           f"TFLOP/s dense ({sms} SMs)")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip())
+    print(*card(), sep=", ", flush=True)
     return 0
 
 

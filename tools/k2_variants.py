@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -34,6 +33,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from noisyquantumsimulator_tpu_torch import _kernels  # noqa: E402
+from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (  # noqa: E402
     _ENTRY, _masked_squaring_plain)
 
@@ -168,10 +168,7 @@ def main() -> int:
         print(f"FP32 FMAs alone, {label}: "
               f"{ffma_peak_tflops(peak_lib, cplx, sms):.2f} TFLOP/s of "
               f"{cs.PEAK_FP32 / 1e12:.0f} ({sms} SMs)", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip())
+    print(*card(), sep=", ", flush=True)
     return 0
 
 

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 import cProfile
 import pstats
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -27,6 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
 FAMILIES = (("K2", ("masked_square",)),
             ("cuBLAS products", ("gemm", "xmma", "cutlass", "cublas")),
@@ -87,9 +87,7 @@ def main() -> int:
               f"({rest / total * 100:.1f}%); largest: " + "; ".join(
                   f"{k[:50]} {v / 1e3:.3f} ms" for k, v in
                   sorted(left.items(), key=lambda kv: -kv[1])[:3]), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip(), flush=True)
+    print(*card(), sep=", ", flush=True)
     return 0
 
 

@@ -22,13 +22,14 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
 FAMILIES = (("cuBLAS products", ("gemm", "xmma", "cutlass", "cublas")),
             ("gathers / scatters", ("gather", "scatter", "index")),
@@ -137,10 +138,7 @@ def main() -> int:
         return 2
     for d in (7, 9):
         print(json.dumps(breakdown(d)), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(*card(), sep=", ", flush=True)
     return 0
 
 
