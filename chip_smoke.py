@@ -5,8 +5,9 @@ gradient paths, the channel / calibration bridge, the Layer-1 primitive
 backends (neutral atoms, trapped ions, cavity QED), the surface-code memory
 path, the architecture loop (topology -> compiler -> scheduler ->
 executor, and the exact circuit simulators), the multi-device layer on a
-one-rank NCCL group, lattice surgery, the NN decoder, and the reference's
-bench.py records through the port's bench module.
+one-rank NCCL group, lattice surgery, the NN decoder, the reference's
+bench.py records through the port's bench module, and the gate and QEC
+studies of the port's studies package.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
@@ -19,6 +20,7 @@ bench.py records through the port's bench module.
     python3 chip_smoke.py --only parallel    (phases 1, 2 and 17)
     python3 chip_smoke.py --only surgery     (phases 1, 2 and 18)
     python3 chip_smoke.py --only bench       (phases 1, 2 and 19)
+    python3 chip_smoke.py --only studies     (phases 1, 2 and 20)
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
@@ -169,6 +171,22 @@ each; any failure raises and the script exits non-zero:
               compact_summary_line of the three records <= 1500 characters;
               K2 against its twin and matrix_power at the complex128 tier's
               squaring inputs, (1, 81) and (1, 256), with their bounds
+ 20. studies    the port's studies (noisyquantumsimulator_tpu_torch/studies/),
+              each between a reset and a read of the three kernels' launch
+              counts, held to the outputs the reference shipped under
+              examples/: research_parameter_sweeps --quick (F to 1e-8 at
+              complex128, the protocol sweeps to 1e-4); GRAPE, 400 Adam steps
+              over 300 phases at complex64 (baseline F to 1e-4 relative and
+              cost to 3e-3 relative of the shipped 32-bit run, final F at
+              least 0.005 above the baseline and within 2e-4 of the shipped;
+              the complex128 baseline equal to the JAX package's x64 value);
+              qec_study --quick and qec_scale_study --small (p_L Wilson CIs
+              overlap the shipped); decoder_accuracy_study at d = 7, 2^19
+              shots (oracle, window and escalated CIs overlap, every shot
+              certified); gross_code_study in full (0 errors, non-converged
+              fraction within 2x of the shipped); then K2 at the sweeps' and
+              GRAPE's most frequent squaring inputs, K1 at the gate's float64
+              scan and K3 at the gross code's shape against their twins
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result and
@@ -2783,18 +2801,328 @@ def phase_bench(launch_ms):
     return out
 
 
+# GRAPE's holds. The shipped grape_result.json is a 32-bit run; it sits
+# 2.1e-3 relative in the baseline cost and 7.6e-5 in the final F from the
+# complex128 values (the JAX package's x64 run at x0: cost
+# 350.18040669132205, F 0.9713353367950325; final F 0.9790815671308957), so
+# the 32-bit cost is held to 3e-3 relative, F to 1e-4 relative, the final F
+# to 2e-4, and the complex128 baseline on the card to the x64 value.
+GRAPE_BASELINE = (349.4451599121094, 0.9714149236679077)
+GRAPE_FINAL_F = 0.9791575074195862
+GRAPE_X64_BASELINE = (350.18040669132205, 0.9713353367950325)
+GRAPE_COST_RTOL, GRAPE_F_RTOL, GRAPE_FINAL_TOL = 3e-3, 1e-4, 2e-4
+ACCURACY_SHOTS = 1 << 19
+
+
+def _overlap(a, b):
+    return a[0] <= b[1] and b[0] <= a[1]
+
+
+def _first_k2_inputs(calls):
+    """A stand-in for ops/expm's K2 wrapper that keeps the first operand of
+    each (shape, dtype) and counts its calls, then calls the wrapper."""
+    from noisyquantumsimulator_tpu_torch.ops import expm as texpm
+    real = texpm.fused_masked_squaring
+
+    def spy(R, s, max_squarings=None):
+        key = (tuple(R.shape), str(R.dtype).replace("torch.", ""))
+        if key not in calls:
+            calls[key] = [R.detach().clone(), s.clone(), max_squarings, 0]
+        calls[key][3] += 1
+        return real(R, s, max_squarings)
+    return spy
+
+
+def _hold_sweeps(got, ref):
+    """The sweep study against examples/sweep_results.json: F to 1e-8 at
+    complex128 (the protocol sweeps' complex64 population objective to
+    1e-4), gate times and the noise breakdown to 1e-9 relative. Returns the
+    largest |dF| per part."""
+    worst = {}
+
+    def hold(part, f_got, f_ref, tol):
+        d = float(np.max(np.abs(np.asarray(f_got) - np.asarray(f_ref))))
+        worst[part] = max(worst.get(part, 0.0), d)
+        require(d <= tol, f"sweeps {part}: max|dF| {d:.3e} <= {tol:g}")
+
+    def close(part, a, b):
+        require(np.allclose(a, b, rtol=1e-9, atol=0), f"sweeps {part}: equal to "
+                "the shipped values to 1e-9 relative")
+
+    for name, v in got.items():
+        if isinstance(v, dict) and "phase_error_deg" in v:
+            close(name + " values", v["values"], ref[name]["values"])
+            hold("hardware sweeps", v["fidelity"], ref[name]["fidelity"], 1e-8)
+            close(name + " gate time", v["gate_time_us"], ref[name]["gate_time_us"])
+            require(np.allclose(v["phase_error_deg"], ref[name]["phase_error_deg"],
+                                rtol=0, atol=1e-6), f"sweeps {name}: phase error "
+                    "within 1e-6 deg of the shipped")
+    for name in ("lp_delta_over_omega", "smooth_jp_amplitude"):
+        close(name + " values", got[name]["values"], ref[name]["values"])
+        hold("protocol sweeps", got[name]["fidelity"], ref[name]["fidelity"], 1e-4)
+    for sp in ("Rb87", "Cs133"):
+        for proto in ("lp", "smooth_jp"):
+            hold("species", got["species_comparison"][sp][proto]["fidelity"],
+                 ref["species_comparison"][sp][proto]["fidelity"], 1e-8)
+    for part in ("pulse_shape_comparison", "protocol_summary"):
+        for name, row in ref[part].items():
+            rows = row.values() if part == "protocol_summary" else [row]
+            grows = (got[part][name].values() if part == "protocol_summary"
+                     else [got[part][name]])
+            for g, r in zip(grows, rows):
+                hold(part, g["fidelity"], r["fidelity"], 1e-8)
+                close(f"{part} {name}", [g[k] for k in r if k != "fidelity"],
+                      [r[k] for k in r if k != "fidelity"])
+    for name, row in ref["noise_breakdown"].items():
+        require(set(got["noise_breakdown"][name]) == set(row),
+                f"noise breakdown {name}: the shipped keys")
+        close(f"noise breakdown {name}", [float(got["noise_breakdown"][name][k])
+                                          for k in row], [float(row[k]) for k in row])
+    return worst
+
+
+def phase_studies(launch_ms):
+    """Phase 20: the gate and QEC studies (noisyquantumsimulator_tpu_torch/
+    studies/) on the card at their own widths, each held to the output the
+    reference shipped under examples/. Every study runs between a reset and
+    a read of the three kernels' launch counts."""
+    import torch
+    from noisyquantumsimulator_tpu_torch.ops import expm as texpm
+    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import ApparatusConstraints
+    from noisyquantumsimulator_tpu_torch.optimize.engine import (
+        build_fixed_problem, make_objective)
+    from noisyquantumsimulator_tpu_torch.optimize.forward import (
+        get_smooth_jp_bounds_and_x0)
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda
+    from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
+        _evolve_real_phased_many_plain, evolve_real_phased_many_cuda)
+    from noisyquantumsimulator_tpu_torch.studies import (
+        decoder_accuracy_study, grape_optimal_control, gross_code_study,
+        qec_scale_study, qec_study, research_parameter_sweeps)
+    from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
+    from unittest import mock
+
+    def shipped(name):
+        with open(f"examples/{name}") as f:
+            return json.load(f)
+
+    t_phase = time.perf_counter()
+    runs, k2_calls = {}, {}
+
+    def counted(tag, fn):
+        """Run one study with every kernel count set to 0 just before it and
+        read just after; K2's operands are kept per shape."""
+        evolve_real_phased_many_cuda.launches = 0
+        fused_masked_squaring.launches = 0
+        bp_cuda.c2v.launches = 0
+        k2_calls[tag] = {}
+        t0 = time.perf_counter()
+        with mock.patch.object(texpm, "fused_masked_squaring",
+                               _first_k2_inputs(k2_calls[tag])):
+            out = fn()
+        torch.cuda.synchronize()
+        runs[tag] = dict(wall=time.perf_counter() - t0,
+                         K1=evolve_real_phased_many_cuda.launches,
+                         K2=fused_masked_squaring.launches,
+                         K3=bp_cuda.c2v.launches)
+        r = runs[tag]
+        shapes = {f"{k[0]} {k[1]}": v[3] for k, v in k2_calls[tag].items()}
+        say("20 studies", f"{tag}: wall {r['wall']:.1f} s; launches K1 {r['K1']},"
+            f" K2 {r['K2']} (calls by shape {shapes}), K3 {r['K3']}")
+        return out
+
+    # --- 1. research_parameter_sweeps --quick against sweep_results.json
+    got = counted("research_parameter_sweeps", lambda: research_parameter_sweeps.run(
+        quick=True, device="cuda"))
+    worst = _hold_sweeps(got, shipped("sweep_results.json"))
+    sec = got["seconds"]
+    say("20 studies", f"sweeps --quick: max|dF| against the shipped file "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; 27 hardware points in "
+        f"{sec['hardware_sweeps']:.2f} s ({27 / sec['hardware_sweeps']:.2f} points/s); "
+        f"parts {({k: round(v, 2) for k, v in sec.items()})}")
+    require(runs["research_parameter_sweeps"]["K2"] > 0, "sweeps: K2 launched")
+
+    # --- 2. GRAPE, 400 Adam steps over 300 phases at complex64
+    g = counted("grape_optimal_control",
+                lambda: grape_optimal_control.run(device="cuda"))
+    b, fin = g["baseline_smooth_jp"], g["grape"]
+    say("20 studies", f"GRAPE: baseline cost {b['cost']:.4f} (shipped "
+        f"{GRAPE_BASELINE[0]:.4f}), F {b['avg_fidelity']:.7f} (shipped "
+        f"{GRAPE_BASELINE[1]:.7f}); final F {fin['avg_fidelity']:.7f} (shipped "
+        f"{GRAPE_FINAL_F:.7f}), cost {fin['cost']:.4f}, controlled phase "
+        f"{fin['controlled_phase_deg']:.3f} deg; {g['seconds']:.2f} s for 400 steps "
+        f"({g['seconds'] / 400 * 1e3:.1f} ms a step); history "
+        f"{[round(h['cost'], 3) for h in g['history']]}")
+    require(abs(b["cost"] / GRAPE_BASELINE[0] - 1) <= GRAPE_COST_RTOL,
+            f"GRAPE baseline cost within {GRAPE_COST_RTOL:g} relative")
+    require(abs(b["avg_fidelity"] / GRAPE_BASELINE[1] - 1) <= GRAPE_F_RTOL,
+            f"GRAPE baseline F within {GRAPE_F_RTOL:g} relative")
+    require(fin["avg_fidelity"] >= b["avg_fidelity"] + 0.005,
+            "GRAPE: final F at least 0.005 above the baseline")
+    require(abs(fin["avg_fidelity"] - GRAPE_FINAL_F) <= GRAPE_FINAL_TOL,
+            f"GRAPE: final F within {GRAPE_FINAL_TOL:g} of the shipped run's")
+    require(runs["grape_optimal_control"]["K2"] > 0, "GRAPE: K2 launched")
+    app = ApparatusConstraints()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        prob = build_fixed_problem(app, app.make_full_noise(),
+                                   dtype=torch.complex128, device="cuda")
+    c, m = make_objective(prob, "smooth_jp", n_steps=300)(get_smooth_jp_bounds_and_x0()[1])
+    dc = abs(float(c) / GRAPE_X64_BASELINE[0] - 1)
+    df = abs(float(m["avg_fidelity"]) - GRAPE_X64_BASELINE[1])
+    say("20 studies", f"GRAPE baseline at complex128 on the card: cost {float(c):.10f}"
+        f" (the JAX package's x64 {GRAPE_X64_BASELINE[0]:.10f}; {dc:.2e} relative), "
+        f"F {float(m['avg_fidelity']):.12f} (|dF| {df:.2e})")
+    require(dc <= 1e-9 and df <= 1e-10, "GRAPE baseline at complex128 equals the "
+            "JAX package's x64 value")
+
+    # --- 3. qec_study --quick: per-shot Wilson CIs against the shipped table
+    q = counted("qec_study", lambda: qec_study.run(quick=True, device="cuda"))
+    ref = shipped("qec_study.json")
+    for key, n_err in q["errors"].items():
+        d, _ = qec_study.parse_key(key)
+        n = q["shots"][key]
+        ci = wilson_ci(n_err, n)
+        n_ref = ref["shots"][key]
+        k_ref = round(qec_study.shot_rate(ref["table"][key], d) * n_ref)
+        ci_ref = wilson_ci(k_ref, n_ref)
+        say("20 studies", f"qec_study {key}: {n_err} / {n} (CI [{ci[0]:.3e}, "
+            f"{ci[1]:.3e}]); shipped ~{k_ref} / {n_ref} (CI [{ci_ref[0]:.3e}, "
+            f"{ci_ref[1]:.3e}])")
+        require(_overlap(ci, ci_ref), f"qec_study {key}: CI overlaps the shipped")
+    say("20 studies", f"qec_study --quick: Lambda {q['lambda']} (shipped "
+        f"{ref['lambda']}), teraquop d {q['teraquop_d']}")
+
+    # --- 4. qec_scale_study --small: p_L CIs against qec_scale.json
+    s = counted("qec_scale_study", lambda: qec_scale_study.run(small=True,
+                                                               device="cuda"))
+    ref = {r["d"]: r for r in shipped("qec_scale.json")["points"]}
+    for r in s["points"]:
+        lo, hi = r["p_L_ci95"]
+        say("20 studies", f"qec_scale d={r['d']}: sample {r['sample_shots_per_sec']:.1f}"
+            f" shots/s, e2e {r['e2e_sample_decode_shots_per_sec']:.1f}; p_L "
+            f"{r['e2e_p_logical_shot']:.3e} ({r['n_errors']} / {r['decode_shots']}, "
+            f"CI [{lo:.3e}, {hi:.3e}]; shipped {ref[r['d']]['p_L_ci95']}); "
+            f"escalated {r['e2e_escalated_fraction']:.3e}")
+        require(_overlap(r["p_L_ci95"], ref[r["d"]]["p_L_ci95"]),
+                f"qec_scale d={r['d']}: p_L CI overlaps the shipped")
+
+    # --- 5. decoder_accuracy_study at d = 7
+    a = counted("decoder_accuracy_study", lambda: decoder_accuracy_study.run(
+        ds=(7,), shots=ACCURACY_SHOTS, device="cuda"))
+    (row,) = a["points"]
+    ref = {r["d"]: r for r in shipped("decoder_accuracy.json")["points"]}[7]
+    n_ref, w, wr = ref["shots"], row["windows"]["W5C2"], ref["windows"]["W5C2"]
+    for what, k, k_ref in (
+            ("oracle", row["n_errors_oracle"], ref["p_L_oracle"] * n_ref),
+            ("window W5C2", w["n_errors_window"], wr["p_L_window"] * n_ref),
+            ("escalated W5C2", w["n_errors_escalated"], wr["p_L_escalated"] * n_ref)):
+        ci, ci_ref = wilson_ci(k, row["shots"]), wilson_ci(round(k_ref), n_ref)
+        say("20 studies", f"decoder accuracy d=7 {what}: {k} / {row['shots']} "
+            f"(CI [{ci[0]:.3e}, {ci[1]:.3e}]); shipped {round(k_ref)} / {n_ref} "
+            f"(CI [{ci_ref[0]:.3e}, {ci_ref[1]:.3e}])")
+        require(_overlap(ci, ci_ref), f"decoder accuracy d=7 {what}: CI overlaps")
+    say("20 studies", f"decoder accuracy d=7: certified {row['oracle_certified_fraction']}"
+        f", flagged {w['flagged_fraction']:.3e}, oracle {row['oracle_shots_per_sec_host']:.0f}"
+        f" shots/s (host), window {w['window_shots_per_sec']:.0f} shots/s; tiered "
+        f"split {row['tiered_overflow_split']}")
+    require(row["oracle_certified_fraction"] == 1.0, "oracle certifies every shot")
+
+    # --- 6. gross_code_study in full
+    gc = counted("gross_code_study", lambda: gross_code_study.run(device="cuda"))
+    ref = shipped("gross_code_study.json")
+    for key in ("p=0.001", "p=0.002"):
+        r, rr = gc[key], ref[key]
+        say("20 studies", f"gross code {key}: {r['value']} shots/s, {r['e2e_n_errors']}"
+            f" errors in {r['e2e_n_decoded']}; non-converged "
+            f"{r['bp_nonconverged_frac']:.4e} (shipped {rr['bp_nonconverged_frac']:.4e})"
+            f"; {r['decoder']}")
+        require(r["e2e_n_errors"] == 0, f"gross code {key}: 0 errors")
+        ratio = r["bp_nonconverged_frac"] / rr["bp_nonconverged_frac"]
+        require(0.5 <= ratio <= 2.0, f"gross code {key}: non-converged fraction "
+                "within a factor of 2 of the shipped")
+    require(runs["gross_code_study"]["K3"] > 0, "gross code: K3 launched")
+
+    # --- the kernels at the studies' shapes (not counted)
+    out = []
+    for tag in ("research_parameter_sweeps", "grape_optimal_control"):
+        (shape, dt), (R, s_, ms, n) = max(k2_calls[tag].items(),
+                                          key=lambda kv: kv[1][3])
+        # no limit given (expm's default): the chain runs max(s) trips
+        ms = int(s_.max()) if ms is None else ms
+        row = _k2_at(R, s_, ms, f"{shape} {dt} [{tag}]", launch_ms, 50,
+                     phase="20 studies",
+                     tol=1e-12 if dt in ("complex128", "float64") else 1e-6)
+        out.append(_k2_entry(row, f"{shape} {dt} [{tag}]", runs[tag]["K2"],
+                             f"phase 20: {tag} ({n} of its K2 calls at this shape)",
+                             f"B={shape[0]} N={shape[1]} {dt}, max_squarings {ms}"))
+    if runs["research_parameter_sweeps"]["K1"]:
+        U, cq, ph, x0, D, P = _host_scan_inputs(_plan(3))
+        args = [torch.as_tensor(v, device="cuda").to(torch.float64)
+                for v in (U, cq, ph[None], x0)]
+        got = evolve_real_phased_many_cuda(*args, D, P)
+        ref = _evolve_real_phased_many_plain(*args, D, P)
+        err = float((got - ref).abs().max())
+        require(err <= 1e-12 * float(ref.abs().max()), "K1 float64: equal to its twin")
+        k_ms, p_ms = _kernel_vs_plain_ms(
+            lambda: evolve_real_phased_many_cuda(*args, D, P),
+            lambda: _evolve_real_phased_many_plain(*args, D, P), 20)
+        S, n = x0.shape
+        flops = 2.0 * S * n * n * len(ph)
+        nbytes = 8.0 * (2 * S * n + n * n + len(ph))
+        terms = {"operations": flops / PEAK_FP64 * 1e3, "bytes": nbytes / PEAK_BYTES * 1e3}
+        by = max(terms, key=terms.get)
+        say("20 studies", f"K1 float64 B=1 S={S} n={n} {len(ph)} steps [the sweep's "
+            f"gate simulations]: max|kernel - twin| {err:.3e}; K1 {k_ms:.4f} ms, twin "
+            f"{p_ms:.4f} ms; bound {terms[by]:.5f} ms ({by})")
+        out.append({"name": "K1 phase_scan float64 [research_parameter_sweeps]",
+                    "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+                    "launches": runs["research_parameter_sweeps"]["K1"],
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": terms[by], "bound_by": by, "library_ms": None,
+                    "library_note": "no single PyTorch call computes the rotated scan",
+                    "shape": f"B=1 S={S} n={n} n_seg={len(ph)} float64"})
+    rng = np.random.default_rng(SEED + 20)
+    m, sgn = _c2v_inputs(rng, 26, 288, 65536)
+    msg = torch.as_tensor(m, device="cuda").to(torch.bfloat16)
+    ss = torch.as_tensor(sgn, device="cuda").to(torch.bfloat16)
+    err = float((bp_cuda.c2v(msg, ss, 0.75).float()
+                 - bp_cuda._c2v_plain(msg, ss, 0.75).float()).abs().max())
+    require(err == 0.0, "K3 at the gross code's shape: bit-exact to its twin")
+    k_ms, p_ms = _kernel_vs_plain_ms(lambda: bp_cuda.c2v(msg, ss, 0.75),
+                                     lambda: bp_cuda._c2v_plain(msg, ss, 0.75), 20)
+    nbytes = 2 * msg.numel() * msg.element_size() + ss.numel() * ss.element_size()
+    say("20 studies", f"K3 (26, 288, 65536) bf16 [gross code study]: kernel {k_ms:.4f}"
+        f" ms, twin {p_ms:.4f} ms, bytes bound {nbytes / PEAK_BYTES * 1e3:.4f} ms")
+    out.append({"name": "K3 bp_c2v [gross_code_study]", "route": "cuda",
+                "source": K3_SOURCE, "replaces": K3_REPLACES,
+                "launches": runs["gross_code_study"]["K3"], "max_abs_err": err,
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                "bound_by": "bytes", "library_ms": None,
+                "library_note": "no single PyTorch call computes normalized "
+                                "min-sum check-to-variable messages",
+                "shape": "w_max=26 n_chk=288 S=65536 bf16"})
+    del msg, ss
+    torch.cuda.empty_cache()
+    say("20 studies", f"study wall times {({k: round(v['wall'], 1) for k, v in runs.items()})}"
+        f"; phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
                                        "primitives", "surface", "architecture",
-                                       "parallel", "surgery", "bench"),
+                                       "parallel", "surgery", "bench", "studies"),
                     help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
                          "(channel), 1, 2 and 13 (primitives), 1, 2 and 14 "
                          "(surface), 1, 2, 15 and 16 (architecture), 1, 2 and 17 "
-                         "(parallel), 1, 2 and 18 (surgery) or 1, 2 and 19 "
-                         "(bench) only, and print no result line")
+                         "(parallel), 1, 2 and 18 (surgery), 1, 2 and 19 "
+                         "(bench) or 1, 2 and 20 (studies) only, and print no "
+                         "result line")
     args = ap.parse_args(argv)
     dev = phase_device()
     if dev is None:
@@ -2831,6 +3159,9 @@ def main(argv=None) -> int:
     if args.only == "bench":
         phase_bench(launch_ms)
         return 0
+    if args.only == "studies":
+        phase_studies(launch_ms)
+        return 0
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
@@ -2854,6 +3185,7 @@ def main(argv=None) -> int:
     kernels.extend(phase_parallel(launch_ms))
     phase_surgery()
     kernels.extend(phase_bench(launch_ms))
+    kernels.extend(phase_studies(launch_ms))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -108,9 +108,10 @@ def device_decode(dec, dets: torch.Tensor, chunk: int):
 
 def build_qec_workload(d: int = 7, rounds: int = 7, p: float = 1e-3,
                        decode_shots: int = 1 << 17,
-                       device: Union[str, torch.device] = "cuda"
-                       ) -> QecWorkload:
-    """The `main_qec` end-to-end workload on `device`."""
+                       device: Union[str, torch.device] = "cuda",
+                       cap: Optional[int] = None) -> QecWorkload:
+    """The `main_qec` end-to-end workload on `device`; `cap` (flagged rows
+    fetched a rep) defaults to the record's."""
     dev = torch.device(device)
     circuit = memory_z_circuit(d, rounds, p=p)
     n_det = circuit.n_detectors
@@ -118,8 +119,9 @@ def build_qec_workload(d: int = 7, rounds: int = 7, p: float = 1e-3,
     graph = MatchingGraph.from_edges(n_det, edges, eprobs, eobs)
     nat = NativeMatchingDecoder(n_det, edges, eprobs, eobs)
     # fetch capacity: cluster flags reach ~10% of shots at d = 11
-    cap = min(decode_shots, max(decode_shots // 8 if d <= 11
-                                else (2 * decode_shots) // 5, 64))
+    if cap is None:
+        cap = min(decode_shots, max(decode_shots // 8 if d <= 11
+                                    else (2 * decode_shots) // 5, 64))
     if d <= 7:
         chunk = min(16384, decode_shots)
         dec = TieredMatcher(n_det, edges, eprobs, eobs, k_light=6,
