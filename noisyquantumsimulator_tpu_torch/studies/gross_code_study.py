@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import argparse
 
-from ..bench import _device, card, main_bb
-from ..utils.observability import provenance_stamp
-from . import add_common_args, out_path, write_json
+from ..bench import _device, main_bb
+from . import add_common_args, out_path, stamp, write_json
 
 NAME = "gross_code_study"
 POINTS = ((1e-3, 11), (2e-3, 12))
@@ -37,8 +36,7 @@ def run(small: bool = False, shots: int = None, reps: int = None,
     rows = {f"p={p}": main_bb(rounds=rounds, p=p, shots=shots, seed=seed,
                               reps=reps, device=dev)
             for p, seed in POINTS}
-    name, limit = card() if dev.type == "cuda" else ("cpu", None)
-    return {**provenance_stamp(), "device": name, "power_limit": limit,
+    return {**stamp(dev),
             "code": "[[144,12]]", "rounds": rounds, **rows}
 
 

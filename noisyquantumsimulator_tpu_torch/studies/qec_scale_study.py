@@ -32,14 +32,13 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..bench import _device, card
+from ..bench import _device
 from ..bench_qec import _generator, _sync, build_qec_workload
 from ..qec.exact_matcher import TieredMatcher
 from ..qec.fast_sampler import build_fast_sampler
 from ..qec.surface_code import memory_z_circuit
 from ..utils.math import wilson_ci
-from ..utils.observability import provenance_stamp
-from . import add_common_args, out_path, read_json, write_json
+from . import add_common_args, out_path, read_json, stamp, write_json
 
 NAME = "qec_scale_study"
 # decode reps per distance: cells at d <= 9 carry >= ~100 expected errors
@@ -158,9 +157,7 @@ def run(small: bool = False, ds: Optional[Sequence[int]] = None,
               f"{r['e2e_escalated_fraction']:>9.2e}", flush=True)
     merged = {r["d"]: r for r in prev_points}
     merged.update({r["d"]: r for r in rows})
-    name, limit = card() if dev.type == "cuda" else ("cpu", None)
-    return {**provenance_stamp(), "device": name, "power_limit": limit,
-            "points": [merged[d] for d in sorted(merged)]}
+    return {**stamp(dev), "points": [merged[d] for d in sorted(merged)]}
 
 
 def main(argv=None) -> int:

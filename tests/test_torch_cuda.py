@@ -27,6 +27,8 @@ from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
 from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
     _evolve_real_phased_many_plain, evolve_real_phased_many_cuda)
 
+from _json_close import close as json_close
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12,
@@ -764,3 +766,51 @@ def test_nn_decoder_logits_cuda_matches_cpu(cuda):
     clear = (c.abs() > 1e-4).numpy()
     assert np.array_equal(dec.decode_batch(dets)[clear],
                           cpu.decode_batch(dets.cpu())[clear])
+
+
+# ---- the platform studies
+
+@pytest.mark.parametrize("study", ["ms_gate_engine_study",
+                                   "cavity_gate_engine_study"])
+def test_engine_study_cuda_matches_cpu(cuda, study, tmp_path):
+    """The MS / cavity engine study at n_fock = 4 on the card and on the
+    CPU: every number but the wall time within 1e-10 (the dominant Pauli
+    errors by value: their labels tie to rounding), the records too, K2
+    launched."""
+    import importlib
+    import json
+    from pathlib import Path
+    mod = importlib.import_module(f"noisyquantumsimulator_tpu_torch.studies.{study}")
+    before = fused_masked_squaring.launches
+    g = mod.run(device=cuda, n_fock=4, store_root=str(tmp_path / "card"))
+    assert fused_masked_squaring.launches > before
+    c = mod.run(device="cpu", n_fock=4, store_root=str(tmp_path / "cpu"))
+
+    def close(a, b):
+        json_close(a, b, 1e-10, strings=False)
+
+    for regime, row in c["regimes"].items():
+        got = g["regimes"][regime]
+        skip = ("dominant_pauli_errors", "sim_wall_s")
+        close({k: v for k, v in got.items() if k not in skip},
+              {k: v for k, v in row.items() if k not in skip})
+        close([p for _, p in got["dominant_pauli_errors"]],
+              [p for _, p in row["dominant_pauli_errors"]])
+        recs = [json.loads(Path(r["calibration_record"]).read_text())
+                for r in (got, row)]
+        close(recs[0]["error_rates"], recs[1]["error_rates"])
+        close(recs[0]["superop"], recs[1]["superop"])
+        close(recs[0]["pauli_error_probs"], recs[1]["pauli_error_probs"])
+
+
+def test_multichip_scaling_one_nccl_rank(cuda):
+    """World size 1, one NCCL rank on the card: the study's checks hold and
+    the reduced counts are the rank's."""
+    from noisyquantumsimulator_tpu_torch.studies import multichip_scaling
+    out = multichip_scaling.run(sizes=(1,), device=cuda, shots_per_dev=4096,
+                                bb_shots=512)
+    (s,), (b,) = out["surface_mc"], out["bb_ldpc_mc"]
+    assert out["platform"] == "cuda" and s["n_devices"] == 1
+    assert s["rank_counts"] == [[s["n_detectors_fired"], s["n_obs_flips"]]]
+    assert 0.0 < s["detector_fraction"] < 0.5 and b["shots"] == 512
+    assert 0.0 <= b["p_logical_shot"] < 0.5

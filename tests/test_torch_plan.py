@@ -124,6 +124,9 @@ from noisyquantumsimulator_tpu_torch import studies
 from noisyquantumsimulator_tpu_torch.studies import (
     decoder_accuracy_study, grape_optimal_control, gross_code_study, qec_scale_study,
     qec_study, research_parameter_sweeps)
+from noisyquantumsimulator_tpu_torch.studies import (
+    cavity_gate_engine_study, demo_notebook, generate_figures, ion_memory,
+    ms_gate_engine_study, multichip_scaling, nn_decoder_study)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("noisyquantumsimulator_tpu."))
 assert not bad, bad
@@ -137,9 +140,9 @@ print("OK")
 def test_import_hygiene_no_jax_no_build():
     """Importing the port and every submodule (the QEC path, bench_bb, the
     optimizer, the channel bridge, the primitives with their gate engines,
-    the bench records, the two bang-bang scripts and the studies included)
-    loads no JAX, none of the JAX package, and starts no process (so
-    neither nvcc nor g++)."""
+    the bench records, the two bang-bang scripts and all the studies
+    included) loads no JAX, none of the JAX package, and starts no process
+    (so neither nvcc nor g++)."""
     out = subprocess.run([sys.executable, "-c", _HYGIENE], capture_output=True,
                          text=True, timeout=300)
     assert "OK" in out.stdout, out.stderr[-2000:]
