@@ -50,6 +50,7 @@ from ..ops.expm import expm
 from ..physics.protocols import compute_phase_shift_xi_torch
 from ..solver.propagator import Schedule, evolve_rhos, real_dtype
 from ..solver.real_rep import evolve_real_phased, from_real_coords
+from ..utils.observability import span
 from .apparatus import ApparatusConstraints
 from .cost import compute_cost_arrays
 
@@ -463,9 +464,13 @@ def make_population_objective(problem: FixedProblem, protocol: str,
     key = _check_protocol(protocol)
     device, dtype = _where(problem, device, dtype)
     core = _make_eval_core(problem, key, builder_kwargs, device, dtype)
+    first = True
 
     def call(population):
-        with torch.no_grad():
+        # the span nqs.step; the first call is recorded in any case
+        nonlocal first
+        with span("nqs.step", always=first), torch.no_grad():
+            first = False
             return core(_params_on(population, device, dtype))
 
     return call

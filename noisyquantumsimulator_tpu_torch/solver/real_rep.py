@@ -33,6 +33,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.observability import span
+
 
 class RealRep(NamedTuple):
     """Host-built tables for the real Hermitian-basis engine (dim D).
@@ -127,9 +129,11 @@ def evolve_real_phased_many(U_real, cq, phases_bn, x0s, D: int, P: int):
 
     U_real: (n, n) real; cq: (P,) pair charges; phases_bn: (B, n_seg);
     x0s: (S, n) shared initial coordinates. Returns (B, S, n).
-    CUDA tensors run kernel K1; CPU tensors its plain twin."""
+    CUDA tensors run kernel K1; CPU tensors its plain twin. The span
+    nqs.scan."""
     from .scan_cuda import evolve_real_phased_many_cuda
-    return evolve_real_phased_many_cuda(U_real, cq, phases_bn, x0s, D, P)
+    with span("nqs.scan"):
+        return evolve_real_phased_many_cuda(U_real, cq, phases_bn, x0s, D, P)
 
 
 def _evolve_real_phased_population(U_real, cq, phases, x0s, D: int, P: int):
@@ -150,29 +154,30 @@ def _evolve_real_phased_population(U_real, cq, phases, x0s, D: int, P: int):
     The first rotation (by -phi_0) is folded into step 0, whose own angle is
     zero; the factors of every step are made in one call. The scan is bound
     by the host's launches and by reading each member's U^T once a step,
-    not by the doubled arithmetic."""
-    M, n_seg = phases.shape
-    rdt, dev = U_real.dtype, U_real.device
-    ph = phases.to(rdt).transpose(0, 1)                     # (n_seg, M)
-    theta = torch.cat([-ph[:1], ph[:-1] - ph[1:], ph[-1:]], dim=0)
-    th = theta[:, :, None] * cq.to(rdt)                     # (n_seg + 1, M, P)
-    cos, sin = torch.cos(th), torch.sin(th)
-    ones = torch.ones((n_seg + 1, M, D), dtype=rdt, device=dev)
-    # factors[k]: (M, 1, 2, n) = (C, Sg[swap]) of step k
-    factors = torch.stack([torch.cat([ones, cos, cos], dim=-1),
-                           torch.cat([torch.zeros_like(ones), sin, -sin], dim=-1)],
-                          dim=-2)[:, :, None]
-    swap = torch.cat([torch.arange(D), torch.arange(D + P, D + 2 * P),
-                      torch.arange(D, D + P)]).to(dev)
-    UT = U_real.transpose(-1, -2)
-    UT2 = torch.cat([UT, UT.index_select(-2, swap)], dim=-2)   # (M, 2n, n)
+    not by the doubled arithmetic. The span nqs.scan."""
+    with span("nqs.scan"):
+        M, n_seg = phases.shape
+        rdt, dev = U_real.dtype, U_real.device
+        ph = phases.to(rdt).transpose(0, 1)                     # (n_seg, M)
+        theta = torch.cat([-ph[:1], ph[:-1] - ph[1:], ph[-1:]], dim=0)
+        th = theta[:, :, None] * cq.to(rdt)                     # (n_seg + 1, M, P)
+        cos, sin = torch.cos(th), torch.sin(th)
+        ones = torch.ones((n_seg + 1, M, D), dtype=rdt, device=dev)
+        # factors[k]: (M, 1, 2, n) = (C, Sg[swap]) of step k
+        factors = torch.stack([torch.cat([ones, cos, cos], dim=-1),
+                               torch.cat([torch.zeros_like(ones), sin, -sin], dim=-1)],
+                              dim=-2)[:, :, None]
+        swap = torch.cat([torch.arange(D), torch.arange(D + P, D + 2 * P),
+                          torch.arange(D, D + P)]).to(dev)
+        UT = U_real.transpose(-1, -2)
+        UT2 = torch.cat([UT, UT.index_select(-2, swap)], dim=-2)   # (M, 2n, n)
 
-    v = x0s.to(rdt).expand(M, *x0s.shape[-2:])
-    S, n = v.shape[-2:]
-    for k in range(n_seg):
-        v = torch.bmm((v.unsqueeze(-2) * factors[k]).reshape(M, S, 2 * n), UT2)
-    halves = v.unsqueeze(-2) * factors[n_seg]               # the last rotation
-    return halves[..., 0, :] + halves[..., 1, :].index_select(-1, swap)
+        v = x0s.to(rdt).expand(M, *x0s.shape[-2:])
+        S, n = v.shape[-2:]
+        for k in range(n_seg):
+            v = torch.bmm((v.unsqueeze(-2) * factors[k]).reshape(M, S, 2 * n), UT2)
+        halves = v.unsqueeze(-2) * factors[n_seg]               # the last rotation
+        return halves[..., 0, :] + halves[..., 1, :].index_select(-1, swap)
 
 
 def evolve_real_phased(U_real, cq, phases, x0s, D: int, P: int):

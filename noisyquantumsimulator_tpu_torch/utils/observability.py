@@ -1,111 +1,104 @@
-"""Structured metrics, timers, and profiler hooks.
+"""The port's span recorder, and the provenance stamp of its records.
 
-The reference has only ad-hoc verbose prints and wall-clock fields
-(SURVEY.md 5: simulation.py:2994, optimize_cz_gate.py:1059). This module
-provides the structured replacement: hierarchical timers, a metrics
-registry with JSONL export, and torch.profiler integration for device
-traces.
+A span marks one layer boundary of the gate engine:
 
-Counterpart of the reference's `utils/observability.py`. `MetricsRegistry`
-is copied; `profile_trace` and `annotate` use torch.profiler where the
-reference uses jax.profiler; `provenance_stamp` and `device_memory_stats`
-read torch's devices. The reference's `log_compile_time` times XLA's
-lowering and compile of a jitted function: the port compiles nothing of that
-kind, so it has no counterpart.
+  nqs.plan   the host plan (`gate/simulate.plan_cz_gate`)
+  nqs.step   one call of an entry closure (`bench_gate.build_workload`'s step,
+             `optimize/engine.make_population_objective`'s call)
+  nqs.scan   the segment scan (`solver/real_rep`: K1's batch of schedules, the
+             population's per-member scan)
+
+A record is `Span(name, start_ns, end_ns, parent, step)`. Its times come from
+`time.time_ns()`, the clock of torch.profiler's chrome trace (an event's
+`ts` in us x 1e3 plus the file's `baseTimeNanoseconds`), so a span is set
+against the device's events by a subtraction. `parent` is the index in
+`spans()` of the enclosing recorded span, or -1; `step` that of the enclosing
+`nqs.step` span (a step's own index), or -1.
+
+A span is recorded while a torch.profiler records (whatever its
+activities), and inside a span opened with `always=True`: the program opens
+the process's first plan and each entry closure's first call so, which holds
+set-up's kernel-library load and first device calls. Otherwise a span tests
+its flags and returns, reads no clock and keeps nothing, so an untraced
+study that plans thousands of gates keeps a handful of records. Records are
+kept in memory, in the order the spans open, for the process's one calling
+thread; `clear()` drops them.
+
+Counterpart of the reference's `utils/observability.py`, of which the port
+keeps `provenance_stamp` alone: its metrics registry and profiler helpers
+had no reader in the port.
 """
 from __future__ import annotations
 
-import contextlib
-import json
 import os
 import time
-from collections import defaultdict
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
-from .profiling import TRACE_DIR
-
-
-@dataclass
-class MetricsRegistry:
-    """Counter/gauge/timer store with JSONL export."""
-    counters: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
-    gauges: Dict[str, float] = field(default_factory=dict)
-    timings: Dict[str, List[float]] = field(default_factory=lambda: defaultdict(list))
-    events: List[Dict] = field(default_factory=list)
-
-    def incr(self, name: str, value: float = 1.0):
-        self.counters[name] += value
-
-    def gauge(self, name: str, value: float):
-        self.gauges[name] = float(value)
-
-    def record(self, name: str, seconds: float):
-        self.timings[name].append(float(seconds))
-
-    def event(self, name: str, **fields):
-        self.events.append({"event": name, "t": time.time(), **fields})
-
-    @contextlib.contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.record(name, time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, Any]:
-        timing_stats = {
-            k: {"n": len(v), "total_s": sum(v),
-                "mean_s": sum(v) / len(v) if v else 0.0,
-                "max_s": max(v) if v else 0.0}
-            for k, v in self.timings.items()}
-        return {"counters": dict(self.counters), "gauges": dict(self.gauges),
-                "timings": timing_stats, "n_events": len(self.events)}
-
-    def dump_jsonl(self, path: str):
-        with open(path, "a") as f:
-            f.write(json.dumps({"summary": self.summary(),
-                                "t": time.time()}) + "\n")
-            for e in self.events:
-                f.write(json.dumps(e) + "\n")
-
-    def reset(self):
-        self.counters.clear()
-        self.gauges.clear()
-        self.timings.clear()
-        self.events.clear()
+STEP = "nqs.step"
 
 
-# global default registry (opt-in; engine code does not auto-register)
-metrics = MetricsRegistry()
+class Span(NamedTuple):
+    name: str
+    start_ns: int
+    end_ns: Optional[int]        # None while the span is open
+    parent: int
+    step: int
 
 
-@contextlib.contextmanager
-def profile_trace(logdir: Optional[str] = None, name: str = "trace"):
-    """torch.profiler over the block (the host, and the card when torch sees
-    one); the chrome trace goes to `<logdir>/<name>.json` (default logdir:
-    the port's `_build/traces`). View it with Perfetto or chrome://tracing.
-    Yields the trace path."""
-    from torch.profiler import ProfilerActivity, profile
-    logdir = logdir or TRACE_DIR
-    os.makedirs(logdir, exist_ok=True)
-    path = os.path.join(logdir, f"{name}.json")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield path
-    prof.export_chrome_trace(path)
+_records: List[list] = []        # [name, start_ns, end_ns, parent, step]
+_open: List[int] = []            # indices of the open recorded spans, innermost last
+_forced = 0                      # open recorded spans opened with always=True
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region visible in profiler traces (record_function)."""
-    with torch.profiler.record_function(name):
-        yield
+class span:
+    """`with span(name):` records the block as a span while a profiler
+    records or an enclosing `always` span is open; `always=True` records it
+    (and the spans inside it) in any case."""
+    __slots__ = ("name", "always", "rec")
+
+    def __init__(self, name: str, always: bool = False):
+        self.name = name
+        self.always = always
+        self.rec = None
+
+    def __enter__(self):
+        global _forced
+        if not (self.always or _forced or _profiler._is_profiler_enabled):
+            return self
+        _forced += self.always
+        index = len(_records)
+        parent = _open[-1] if _open else -1
+        step = index if self.name == STEP else (_records[parent][4] if parent >= 0 else -1)
+        self.rec = [self.name, 0, None, parent, step]
+        _records.append(self.rec)
+        _open.append(index)
+        self.rec[1] = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        global _forced
+        if self.rec is not None:
+            self.rec[2] = time.time_ns()
+            self.rec = None
+            _forced -= self.always
+            if _open:
+                _open.pop()
+        return False
+
+
+def spans() -> List[Span]:
+    """Every record since the process started or `clear()` ran."""
+    return [Span(*r) for r in _records]
+
+
+def clear() -> None:
+    """Drops the records; a span opened after this inside one opened before
+    it gets no parent."""
+    del _records[:]
+    del _open[:]
 
 
 def provenance_stamp() -> Dict[str, str]:
@@ -131,15 +124,4 @@ def provenance_stamp() -> Dict[str, str]:
                                           time.gmtime())}
 
 
-def device_memory_stats() -> Dict[str, Any]:
-    """Per-device memory stats: `torch.cuda.memory_stats` of every card
-    torch sees; {"cpu": None} when it sees none (torch keeps no CPU
-    allocator statistics)."""
-    if not torch.cuda.is_available():
-        return {"cpu": None}
-    return {f"cuda:{i}": torch.cuda.memory_stats(i)
-            for i in range(torch.cuda.device_count())}
-
-
-__all__ = ["MetricsRegistry", "metrics", "profile_trace", "annotate",
-           "device_memory_stats", "provenance_stamp"]
+__all__ = ["Span", "span", "spans", "clear", "provenance_stamp"]

@@ -54,38 +54,64 @@ def _jgates(gates):
 
 # --- observability --------------------------------------------------------
 
-def test_metrics_registry_roundtrip(tmp_path):
-    """tests/test_architecture.py:267-285 against the port's registry."""
-    m = tobs.MetricsRegistry()
-    m.incr("sims", 5)
-    m.gauge("fidelity", 0.99)
-    with m.timer("solve"):
-        pass
-    m.event("calib", protocol="lp")
-    s = m.summary()
-    assert s["counters"]["sims"] == 5
-    assert s["gauges"]["fidelity"] == 0.99
-    assert "solve" in s["timings"] and s["n_events"] == 1
-    path = tmp_path / "metrics.jsonl"
-    m.dump_jsonl(str(path))
-    assert path.exists() and len(path.read_text().strip().splitlines()) == 2
-    m.reset()
-    assert m.summary()["counters"] == {}
+def test_metrics_registry_roundtrip():
+    """The span recorder that replaced the registry: under a profiler, nested
+    spans keep their parent's index and the index of their nqs.step span;
+    `clear()` drops them."""
+    tobs.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tobs.span("nqs.plan"):
+            pass
+        with tobs.span("nqs.step"):
+            with tobs.span("nqs.scan"):
+                with tobs.span("inner"):
+                    pass
+    rec = tobs.spans()
+    assert [(r.name, r.parent, r.step) for r in rec] == [
+        ("nqs.plan", -1, -1), ("nqs.step", -1, 1), ("nqs.scan", 1, 1), ("inner", 2, 1)]
+    assert all(r.start_ns <= r.end_ns for r in rec)
+    assert rec[1].start_ns <= rec[2].start_ns and rec[2].end_ns <= rec[1].end_ns
+    tobs.clear()
+    assert tobs.spans() == []
 
 
 def test_profile_trace_annotate_and_stamps(tmp_path):
-    with tobs.profile_trace(str(tmp_path), name="t") as path:
-        with tobs.annotate("region"):
-            torch.ones(8).sum()
-    text = open(path).read()
-    assert "region" in text
+    """A span shares the profiler trace's clock: inside a record_function it
+    starts and ends within 1 ms of it, after converting the trace's `ts` by
+    its `baseTimeNanoseconds`. The stamp keeps its keys; the registry and
+    profiler helpers that nothing read are gone."""
+    import json
+    # a process's first record_function stamps its start 0.3-1.5 ms before
+    # it returns
+    with torch.profiler.record_function("warm"), tobs.span("nqs.step"):
+        pass
+    tobs.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with torch.profiler.record_function("region"):
+                with tobs.span("nqs.step"):
+                    torch.ones(64).sum()
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace["baseTimeNanoseconds"])
+    marks = sorted((e for e in trace["traceEvents"] if e.get("name") == "region"),
+                   key=lambda e: e["ts"])
+    rec = tobs.spans()
+    assert len(marks) == len(rec) == 3
+    for e, r in zip(marks, rec):
+        a = base + round(e["ts"] * 1e3)
+        b = a + round(e["dur"] * 1e3)
+        assert a - 1e6 <= r.start_ns <= a + 1e6 and b - 1e6 <= r.end_ns <= b + 1e6
+    tobs.clear()
     stamp = tobs.provenance_stamp()
     assert set(stamp) == {"generated_at_commit", "backend", "device",
                           "generated_at"}
     assert stamp["backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
-    stats = tobs.device_memory_stats()
-    assert isinstance(stats, dict) and stats
-    assert not hasattr(tobs, "log_compile_time")
+    for gone in ("MetricsRegistry", "metrics", "profile_trace", "annotate",
+                 "device_memory_stats", "log_compile_time"):
+        assert not hasattr(tobs, gone)
 
 
 # --- topology -------------------------------------------------------------
