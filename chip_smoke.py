@@ -30,7 +30,8 @@ each; any failure raises and the script exits non-zero:
 
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
-              ptxas registers and spills of K1 and K2 (no spills allowed);
+              ptxas registers and spills of K1, K2 and the population scan
+              (no spills allowed);
               the time of one empty kernel launch
   3. K1       the phase-scan kernel vs its plain twin at the bench layout
               (n = 81, S = 5, 300 steps, B = 1024; n = 256, B = 256), f32/f64
@@ -65,7 +66,10 @@ each; any failure raises and the script exits non-zero:
               smooth JP (300 segments, float32 real core) and bang-bang (5
               segments, complex64): evaluations/s, K2 launches per call
               (exactly one; no autograd graph recorded), a profiler window of 3 calls, 8 members against the complex128
-              per-segment path; the per-segment engine of one gate at dim 4
+              per-segment path; the population-scan kernel at the smooth-JP
+              call's own operands ((1024, 81), S = 5, 300 steps, f32; one
+              launch a call) against its twin, the batched-product loop:
+              times, bounds, spills; the per-segment engine of one gate at dim 4
               against the phase-frame route; then optimize_cz_gate("smooth_jp",
               maxiter=10, popsize=15, grad_polish=False, seed=42): history
               does not increase, final fidelity no lower than at x0
@@ -239,6 +243,7 @@ K1_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/phase_scan.cu"
 K1_REPLACES = "noisyquantumsimulator_tpu/solver/scan_pallas.py:71"
 K2_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/masked_squaring.cu"
 K2_REPLACES = "noisyquantumsimulator_tpu/ops/expm_pallas.py:35"
+PSCAN_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/population_scan.cu"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
@@ -371,6 +376,15 @@ def phase_build():
     for name, _, st, ld in k2:
         require(st == 0 and ld == 0 and stack.get(name) == 0,
                 f"{name} spills or keeps its register tiles on the stack")
+    ps = [r for r in _kernels.ptxas_report() if "population_scan" in r[0]]
+    require(len(ps) == 14, f"ptxas report of the 14 population-scan kernels, "
+            f"got {len(ps)}")
+    for name, regs, st, ld in ps:
+        m = re.search(r"kernelI(.+?)Li(\d+)EE", name)
+        what = f"<{m.group(1)}, {m.group(2)}>" if m else name
+        say("2 build", f"ptxas population scan {what}: {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B, stack frame {stack.get(name)} B")
+        require(st == 0 and ld == 0, f"{name} spills")
 
 
 def phase_k1(rng):
@@ -1081,9 +1095,75 @@ def _hold_to_c128(what, problem, key, kw, pop8, cost, metrics, obj64, tol_f,
     return dF
 
 
-def phase_optimizer():
+def _population_scan_entry(obj, pop, launch_ms):
+    """The population-scan kernel at the main path's own operands (one call
+    of the smooth-JP population objective, recorded as it reaches the scan):
+    against its twin, the batched-product loop (float32, 1e-4 relative),
+    times of both in turns, and its bounds. Returns its kernels-line entry."""
+    import torch
+    from noisyquantumsimulator_tpu_torch import _kernels
+    from noisyquantumsimulator_tpu_torch.optimize import engine
+    from noisyquantumsimulator_tpu_torch.solver.population_scan_cuda import (
+        _evolve_real_phased_population_plain, evolve_real_phased_population_cuda)
+    seen, scan = [], engine.evolve_real_phased
+
+    def spy(*args):
+        seen.append(args)
+        return scan(*args)
+    engine.evolve_real_phased = spy
+    try:
+        launches = evolve_real_phased_population_cuda.launches
+        loops = evolve_real_phased_population_cuda.loop_calls
+        obj(torch.as_tensor(pop, device="cuda"))
+        launches = evolve_real_phased_population_cuda.launches - launches
+        loops = evolve_real_phased_population_cuda.loop_calls - loops
+    finally:
+        engine.evolve_real_phased = scan
+    require(len(seen) == 1 and launches == 1 and loops == 0,
+            f"one population-scan launch a call ({launches}; loop {loops})")
+    U, cq, ph, x0, D, P = seen[0]
+    (M, n, _), n_seg, S = U.shape, ph.shape[1], x0.shape[-2]
+    kernel = lambda: evolve_real_phased_population_cuda(U, cq, ph, x0, D, P)
+    plain = lambda: _evolve_real_phased_population_plain(U, cq, ph, x0, D, P)
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    require(got.shape == (M, S, n) and bool(torch.isfinite(got).all()),
+            "population scan output finite")
+    require(err <= 1e-4 * scale,
+            f"population scan f32: max|d| {err:.3e} > 1e-4 * {scale:.3e}")
+    k_ms, p_ms = _kernel_vs_plain_ms(kernel, plain, reps=5)
+    flops = 2.0 * M * S * n * n * n_seg
+    nbytes = 4.0 * (M * n * n + P + M * n_seg + 2 * M * S * n)
+    fp32_ms, tf32_ms = flops / PEAK_FP32 * 1e3, flops / PEAK_TF32 * 1e3
+    byte_ms = nbytes / PEAK_BYTES * 1e3
+    spills = [(name, st, ld) for name, _, st, ld in _kernels.ptxas_report()
+              if "population_scan" in name]
+    say("10 optimizer", f"population scan ({M}, {n}) S={S} {n_seg} steps f32 at "
+        f"the smooth-JP call's operands: kernel {k_ms:.4f} ms ({flops / k_ms * 1e-9:.2f}"
+        f" TFLOP/s), twin (300 x product + torch.bmm) {p_ms:.4f} ms; max|kernel - "
+        f"twin| {err:.3e} (max|ref| {scale:.3e}, tol 1e-4 relative); bounds: FP32 "
+        f"pipes {fp32_ms:.4f} ms ({fp32_ms / k_ms * 100:.1f}%), the benchmark's "
+        f"495 TFLOP/s {tf32_ms:.4f} ms ({tf32_ms / k_ms * 100:.1f}%), bytes "
+        f"{byte_ms:.4f} ms; spills in {sum(st + ld > 0 for _, st, ld in spills)} "
+        f"of {len(spills)} kernels")
+    return {"name": "population scan", "route": "cuda", "source": PSCAN_SOURCE,
+            "replaces": None, "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": fp32_ms,
+            "bound_by": "operations (FP32 pipes)", "bound_495_ms": tf32_ms,
+            "bytes_ms": byte_ms, "empty_launch_ms": launch_ms,
+            "spills": sum(st + ld for _, st, ld in spills),
+            "library_ms": p_ms,
+            "library_note": "no single call computes the rotated scan; the twin "
+                            "(300 x one product and one torch.bmm) is the library "
+                            "yardstick",
+            "shape": f"M={M} S={S} n={n} {n_seg} steps f32 (FP32 FMAs)"}
+
+
+def phase_optimizer(launch_ms=None):
     """Phase 10: the optimizer's forward path. Returns K2's launches on it,
-    by the shape it was launched at."""
+    by the shape it was launched at, the objectives' rates and the
+    population-scan kernel's kernels-line entry."""
     import torch
     from noisyquantumsimulator_tpu_torch.gate.simulate import (
         plan_squaring_bound, run_plan)
@@ -1117,6 +1197,7 @@ def phase_optimizer():
     require(launches["smooth_jp"] == 5, "smooth_jp: one K2 launch per call")
     _hold_to_c128("smooth_jp", problem, "smooth_jp", {}, pop[:8], cost, metrics, obj64,
                   1e-4)
+    pscan = _population_scan_entry(obj, pop, launch_ms)
 
     # --- bang-bang, 5 segments, complex64: one expm a member and segment
     bounds, x0 = forward.get_jp_bangbang_bounds_and_x0(5)
@@ -1192,7 +1273,7 @@ def phase_optimizer():
             "one K2 launch per generation, the start and the final metrics")
     require(np.isfinite(F1) and F1 >= F0 - 1e-6,
             f"final fidelity {F1} no lower than at x0 {F0}")
-    return launches, {"smooth_jp": rate_sj, "jp_bangbang": rate_bb}
+    return launches, {"smooth_jp": rate_sj, "jp_bangbang": rate_bb}, pscan
 
 
 # K2's gradient against autograd through its twin: (B, N, dtype, squaring
@@ -3512,7 +3593,7 @@ def main(argv=None) -> int:
     if args.only:
         phase_k2_batched(launch_ms)
         if args.only == "optimizer":
-            phase_optimizer()
+            phase_optimizer(launch_ms)
         return 0
     phase_k1(np.random.default_rng(SEED))
     errs_k2 = phase_k2()
@@ -3521,8 +3602,9 @@ def main(argv=None) -> int:
     errs_k3 = phase_k3()
     kernels.append(phase_bb(errs_k3))
     rows = phase_k2_batched(launch_ms)
-    launches, _ = phase_optimizer()
+    launches, _, pscan = phase_optimizer(launch_ms)
     kernels.extend(_k2_entries(rows, launches))
+    kernels.append(pscan)
     kernels.append(phase_gradients(launch_ms))
     kernels.append(phase_channel(launch_ms)[1])
     kernels.extend(phase_primitives(launch_ms))

@@ -44,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
     "nqs_bp_c2v_f32": (_P, _P, _P, _I, _I, _I, _F, _P),
@@ -56,6 +57,9 @@ _SIGNATURES = {
     "nqs_masked_squaring_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "nqs_masked_squaring_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "nqs_masked_squaring_is_resident": (_I, _I),
+    "nqs_population_scan_f32": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
+    "nqs_population_scan_f64": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
+    "nqs_population_scan_is_resident": (_I, _I, _I),
     "nqs_empty_launch": (_P,),
 }
 

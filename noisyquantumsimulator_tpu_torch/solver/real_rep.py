@@ -24,7 +24,8 @@ is exact.
 
 The 300-step scan of a batch of schedules, `evolve_real_phased_many`, is the
 hot loop of every gate simulation; it runs as CUDA kernel K1 on the card
-(solver/scan_cuda.py).
+(solver/scan_cuda.py). The optimizer's population, one propagator a member,
+runs as the population-scan kernel (solver/population_scan_cuda.py).
 """
 from __future__ import annotations
 
@@ -141,43 +142,13 @@ def _evolve_real_phased_population(U_real, cq, phases, x0s, D: int, P: int):
     member: U_real (M, n, n), phases (M, n_seg), x0s (S, n) shared or
     (M, S, n); returns (M, S, n). This is what mapping the single-schedule
     scan over a population gives; kernel K1 does not apply, it shares one
-    U^T over all rows.
-
-    A step is two launches, one product with the step's factors and one
-    torch.bmm. The pair rotation is linear in the coordinates,
-    rot(v) = v * C + v[swap] * Sg with C = (1, cos, cos), Sg = (0, -sin, sin)
-    and swap exchanging each pair's re and im, so
-
-        rot(v) @ U^T = [v * C | v * Sg[swap]] @ [U^T ; U^T[swap]]
-
-    with the two halves side by side along the contraction axis (2n long).
-    The first rotation (by -phi_0) is folded into step 0, whose own angle is
-    zero; the factors of every step are made in one call. The scan is bound
-    by the host's launches and by reading each member's U^T once a step,
-    not by the doubled arithmetic. The span nqs.scan."""
+    U^T over all rows. CUDA tensors run the population-scan kernel (one
+    launch) where a member fits one block, the batched-product loop
+    otherwise and under autograd; CPU tensors the loop
+    (solver/population_scan_cuda.py has the rules). The span nqs.scan."""
+    from .population_scan_cuda import evolve_real_phased_population_cuda
     with span("nqs.scan"):
-        M, n_seg = phases.shape
-        rdt, dev = U_real.dtype, U_real.device
-        ph = phases.to(rdt).transpose(0, 1)                     # (n_seg, M)
-        theta = torch.cat([-ph[:1], ph[:-1] - ph[1:], ph[-1:]], dim=0)
-        th = theta[:, :, None] * cq.to(rdt)                     # (n_seg + 1, M, P)
-        cos, sin = torch.cos(th), torch.sin(th)
-        ones = torch.ones((n_seg + 1, M, D), dtype=rdt, device=dev)
-        # factors[k]: (M, 1, 2, n) = (C, Sg[swap]) of step k
-        factors = torch.stack([torch.cat([ones, cos, cos], dim=-1),
-                               torch.cat([torch.zeros_like(ones), sin, -sin], dim=-1)],
-                              dim=-2)[:, :, None]
-        swap = torch.cat([torch.arange(D), torch.arange(D + P, D + 2 * P),
-                          torch.arange(D, D + P)]).to(dev)
-        UT = U_real.transpose(-1, -2)
-        UT2 = torch.cat([UT, UT.index_select(-2, swap)], dim=-2)   # (M, 2n, n)
-
-        v = x0s.to(rdt).expand(M, *x0s.shape[-2:])
-        S, n = v.shape[-2:]
-        for k in range(n_seg):
-            v = torch.bmm((v.unsqueeze(-2) * factors[k]).reshape(M, S, 2 * n), UT2)
-        halves = v.unsqueeze(-2) * factors[n_seg]               # the last rotation
-        return halves[..., 0, :] + halves[..., 1, :].index_select(-1, swap)
+        return evolve_real_phased_population_cuda(U_real, cq, phases, x0s, D, P)
 
 
 def evolve_real_phased(U_real, cq, phases, x0s, D: int, P: int):

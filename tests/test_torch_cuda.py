@@ -26,6 +26,9 @@ from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
     _masked_squaring_plain, fused_masked_squaring)
 from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
     _evolve_real_phased_many_plain, evolve_real_phased_many_cuda)
+from noisyquantumsimulator_tpu_torch.solver.population_scan_cuda import (
+    _evolve_real_phased_population_plain, evolve_real_phased_population_cuda,
+    resident)
 
 from _json_close import close as json_close
 
@@ -74,6 +77,123 @@ def test_phase_scan_kernel_matches_twin(cuda, dtype, D, P, B, S, n_seg):
     torch.cuda.synchronize()
     assert got.shape == (B, S, D + 2 * P) and got.dtype == dtype
     assert float((got - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+_POP_U = {}
+
+
+def _population_inputs(cuda, D, P, M, S, n_seg, dtype, per_member, seed=7):
+    """One orthogonal U per member (QR of normal matrices, cached per (n, M)),
+    integer charges, phases and states; states shared (S, n) or (M, S, n)."""
+    n = D + 2 * P
+    if (n, M) not in _POP_U:
+        g = torch.Generator().manual_seed(seed)
+        _POP_U[(n, M)] = torch.linalg.qr(
+            torch.randn(M, n, n, generator=g, dtype=torch.float64))[0]
+    rng = np.random.default_rng(seed + M + n_seg)
+    cq = rng.integers(1, 5, P).astype(np.float64)
+    ph = rng.standard_normal((M, n_seg))
+    x0 = rng.standard_normal((M, S, n) if per_member else (S, n))
+    return [torch.as_tensor(a, device=cuda).to(dtype)
+            for a in (_POP_U[(n, M)], cq, ph, x0)]
+
+
+@pytest.mark.parametrize("per_member", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_seg", [1, 40, 300])
+@pytest.mark.parametrize("M", [1, 7, 1024])
+def test_population_scan_kernel_matches_twin(cuda, M, n_seg, dtype, per_member):
+    """The population-scan kernel against its twin (the batched-product
+    loop) at the optimizer's n = 81, S = 5: one launch a call."""
+    args = _population_inputs(cuda, 9, 36, M, 5, n_seg, dtype, per_member)
+    before = (evolve_real_phased_population_cuda.launches,
+              evolve_real_phased_population_cuda.loop_calls)
+    with torch.no_grad():
+        got = evolve_real_phased_population_cuda(*args, 9, 36)
+    assert (evolve_real_phased_population_cuda.launches,
+            evolve_real_phased_population_cuda.loop_calls) == (
+                before[0] + 1, before[1])
+    ref = _evolve_real_phased_population_plain(*args, 9, 36)
+    torch.cuda.synchronize()
+    assert got.shape == (M, 5, 81) and got.dtype == dtype
+    assert float((got - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("D,P,S", [(2, 3, 7), (4, 6, 1), (9, 36, 12),
+                                   (12, 66, 5)])
+def test_population_scan_kernel_other_shapes(cuda, D, P, S):
+    """Widths other than 81 (one to five columns a lane) and row counts that
+    are not 5, in both dtypes."""
+    for dtype in (torch.float32, torch.float64):
+        args = _population_inputs(cuda, D, P, 9, S, 30, dtype, S % 2 == 0)
+        before = evolve_real_phased_population_cuda.launches
+        got = evolve_real_phased_population_cuda(*args, D, P)
+        assert evolve_real_phased_population_cuda.launches == before + 1
+        ref = _evolve_real_phased_population_plain(*args, D, P)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+def test_population_scan_loop_routes_are_counted(cuda):
+    """n = 256 (no member fits a block) and a recorded autograd graph take
+    the loop on the card, each counted once and launching no kernel."""
+    pscan = evolve_real_phased_population_cuda
+    args = _population_inputs(cuda, 16, 120, 2, 5, 6, torch.float32, False)
+    before = (pscan.launches, pscan.loop_calls)
+    got = pscan(*args, 16, 120)
+    assert (pscan.launches, pscan.loop_calls) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, _evolve_real_phased_population_plain(
+        *args, 16, 120), rtol=0, atol=0)
+    U, cq, ph, x0 = _population_inputs(cuda, 9, 36, 1, 5, 6, torch.float64, False)
+    ph = ph.clone().requires_grad_(True)
+    out = pscan(U, cq, ph, x0, 9, 36)
+    assert (pscan.launches, pscan.loop_calls) == (before[0], before[1] + 2)
+    g, = torch.autograd.grad(out.sum(), ph)
+    assert g.shape == ph.shape and bool(torch.isfinite(g).all())
+    with torch.no_grad():
+        pscan(U, cq, ph, x0, 9, 36)
+    assert (pscan.launches, pscan.loop_calls) == (before[0] + 1, before[1] + 2)
+
+
+def test_population_scan_residency_rule_is_the_kernels(cuda):
+    from noisyquantumsimulator_tpu_torch import _kernels
+    lib = _kernels.load()
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        for n in (1, 8, 16, 81, 160, 170, 236, 240, 256, 257):
+            for S in (1, 5, 6, 300):
+                assert resident(n, S, dtype) == bool(
+                    lib.nqs_population_scan_is_resident(n, S, size)), (n, S, dtype)
+
+
+def test_population_objective_cuda_matches_cpu(cuda):
+    """make_population_objective("smooth_jp") on the card (the kernel)
+    against the CPU (the loop) at complex64: fidelities within 1e-4, the
+    cost within 5e-3 relative."""
+    import warnings
+    from noisyquantumsimulator_tpu_torch.optimize import engine, forward
+    from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
+        ApparatusConstraints)
+    app = ApparatusConstraints()
+    bounds, x0 = forward.get_smooth_jp_bounds_and_x0()
+    b = np.asarray(bounds, float)
+    rng = np.random.default_rng(11)
+    pop = np.clip(x0[None] * (1.0 + 0.1 * rng.uniform(-1.0, 1.0, (64, len(x0)))),
+                  b[:, 0], b[:, 1])
+    out = {}
+    for dev in ("cpu", cuda):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            prob = engine.build_fixed_problem(app, app.make_full_noise(),
+                                              device=dev, dtype=torch.complex64)
+        before = evolve_real_phased_population_cuda.launches
+        out[str(dev)] = engine.make_population_objective(prob, "smooth_jp")(
+            torch.as_tensor(pop, device=dev))
+        assert evolve_real_phased_population_cuda.launches == before + (
+            dev != "cpu")
+    (cc, mc), (ch, mh) = out["cuda"], out["cpu"]
+    assert float(((cc.cpu() - ch).abs() / ch.abs()).max()) <= 5e-3
+    for k in ("avg_fidelity", "f00", "f01", "f10", "f11", "cz_phase_fidelity"):
+        assert float((mc[k].cpu() - mh[k]).abs().max()) <= 1e-4, k
 
 
 def _k2_launches(N, max_sq):

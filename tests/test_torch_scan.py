@@ -219,3 +219,82 @@ def test_population_scan_matches_reference(D, P, dtype, tol):
     again = trr.evolve_real_phased(*_t(U.astype(dtype), cq.astype(dtype),
                                        ph.astype(dtype), x0m), D, P)
     assert torch.equal(again, got)
+
+
+def _population(D, P, M, S, n_seg, dtype=np.float64, seed=23):
+    """One orthogonal U per member, integer charges, phases, shared states."""
+    rng = np.random.default_rng(seed)
+    n = D + 2 * P
+    U = np.stack([np.linalg.qr(rng.standard_normal((n, n)))[0] for _ in range(M)])
+    _, cq, ph, x0 = _shapes(D, P, B=M, S=S, n_seg=n_seg, dtype=np.float64,
+                            seed=seed)
+    return _t(*(a.astype(dtype) for a in (U, cq, ph, x0)))
+
+
+def test_population_scan_cpu_takes_the_twin():
+    """CPU tensors take the loop (the kernel's plain twin), for shared and
+    per-member states, and launch nothing."""
+    from noisyquantumsimulator_tpu_torch.solver.population_scan_cuda import (
+        _evolve_real_phased_population_plain as plain,
+        evolve_real_phased_population_cuda as pscan)
+    U, cq, ph, x0 = _population(9, 36, M=3, S=5, n_seg=7)
+    before = (pscan.launches, pscan.loop_calls)
+    got = trr.evolve_real_phased(U, cq, ph, x0, 9, 36)
+    torch.testing.assert_close(got, plain(U, cq, ph, x0, 9, 36), rtol=0, atol=0)
+    x0m = x0.expand(3, *x0.shape).contiguous()
+    torch.testing.assert_close(pscan(U, cq, ph, x0m, 9, 36), got, rtol=0, atol=0)
+    assert (pscan.launches, pscan.loop_calls) == before
+
+
+def test_population_scan_gradient_flows_through_the_loop():
+    """Under autograd a population of one takes the loop, and its gradient
+    with respect to the phases and U equals central finite differences."""
+    U, cq, ph, x0 = _population(2, 3, M=1, S=2, n_seg=6)
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 2, 8)))
+
+    def loss(u, p):
+        return (trr.evolve_real_phased(u, cq, p, x0, 2, 3) * w).sum()
+
+    Ug, pg = U.clone().requires_grad_(True), ph.clone().requires_grad_(True)
+    gU, gp = torch.autograd.grad(loss(Ug, pg), (Ug, pg))
+    h = 1e-6
+    for k in range(ph.shape[1]):
+        e = torch.zeros_like(ph)
+        e[0, k] = h
+        fd = (loss(U, ph + e) - loss(U, ph - e)) / (2 * h)
+        assert abs(float(gp[0, k]) - float(fd)) <= 1e-7 * max(1.0, abs(float(fd)))
+    for idx in ((0, 0, 0), (0, 3, 5), (0, 7, 1)):
+        e = torch.zeros_like(U)
+        e[idx] = h
+        fd = (loss(U + e, ph) - loss(U - e, ph)) / (2 * h)
+        assert abs(float(gU[idx]) - float(fd)) <= 1e-7 * max(1.0, abs(float(fd)))
+
+
+@pytest.mark.parametrize("n,S,dtype,fits", [
+    (81, 5, torch.float32, True), (81, 5, torch.float64, True),
+    (256, 5, torch.float32, False), (81, 5, torch.float16, False),
+    (81, 700, torch.float32, False), (16, 5, torch.float64, True)])
+def test_population_scan_residency_rule(n, S, dtype, fits):
+    """A member's U^T and states in one block's shared memory: every
+    3-level population (n = 81) at 32 and 64 bits, no 4-level one (n = 256)
+    and no other dtype."""
+    from noisyquantumsimulator_tpu_torch.solver.population_scan_cuda import (
+        resident)
+    assert resident(n, S, dtype) is fits
+
+
+def test_population_scan_wrapper_rejects_shapes_and_devices():
+    from noisyquantumsimulator_tpu_torch.solver.population_scan_cuda import (
+        evolve_real_phased_population_cuda as pscan)
+    U, cq, ph, x0 = _population(2, 3, M=2, S=5, n_seg=4)
+    bad = ((U, cq, ph, x0, 3, 3),                   # n != D + 2P
+           (U[:, :7], cq, ph, x0, 2, 3),            # U not square
+           (U, cq[:2], ph, x0, 2, 3),               # one charge short
+           (U, cq, ph[:1], x0, 2, 3),               # phases of one member
+           (U, cq, ph, x0[:, :7], 2, 3),            # states of 7 coordinates
+           (U, cq, ph, x0.expand(3, 5, 8), 2, 3))   # states of 3 members
+    for args in bad:
+        with pytest.raises(ValueError):
+            pscan(*args)
+    with pytest.raises(ValueError):
+        pscan(*(a.to("meta") for a in (U, cq, ph, x0)), 2, 3)
