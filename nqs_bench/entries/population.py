@@ -7,13 +7,33 @@ Its settings are the configuration file's "population" block: the
 apparatus and noise that the fixed problem is planned for."""
 import numpy as np
 
-from nqs_bench.reference import evolve
+from nqs_bench import faults
+from nqs_bench.reference import evolve, gate_model
 from nqs_bench.reference.gate_model import smooth_jp_schedule
+from nqs_bench.traffic import cut
 
 SETTINGS = "population"
 FIDELITIES = ("avg_fidelity", "f00", "f01", "f10", "f11", "cz_phase_fidelity")
 # columns of an answer that the cost reads
 AVG, F11, CZP = (1 + FIDELITIES.index(k) for k in ("avg_fidelity", "f11", "cz_phase_fidelity"))
+FAULTS = faults.FAULTS
+# the CPU tests' cut: members a step; segments by hilbert_space_dim
+SMALL_ROWS, SMALL_STEPS = 8, {3: 60, 4: 12}
+
+
+def model(config: dict):
+    return gate_model.build(config, SETTINGS)
+
+
+def small(config: dict, traffic: dict):
+    steps = SMALL_STEPS[int(config["hilbert_space_dim"])]
+    return dict(config, n_steps=steps), cut(traffic, SMALL_ROWS)
+
+
+def planted(fault: str):
+    """The fault in the CZ readout that the population call ends in."""
+    from noisyquantumsimulator_tpu_torch.optimize import engine
+    return faults.patched(engine, "compute_cz_fidelity", fault, faults.cz_members)
 
 
 class Program:

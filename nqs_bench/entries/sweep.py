@@ -13,10 +13,30 @@ it also computes the fidelity directly, and the interpolation must agree
 with it to INTERPOLATION_TOL (1e-13 on the CPU at 12 nodes)."""
 import numpy as np
 
-from nqs_bench.reference import evolve
+from nqs_bench import faults
+from nqs_bench.reference import evolve, gate_model
+from nqs_bench.traffic import cut
 
 SETTINGS = "sweep"
 INTERPOLATION_TOL = 1e-9
+FAULTS = faults.FAULTS
+# the CPU tests' cut by hilbert_space_dim: rows a step, segments
+SMALL = {3: (8, 60), 4: (2, 12)}
+
+
+def model(config: dict):
+    return gate_model.build(config, SETTINGS)
+
+
+def small(config: dict, traffic: dict):
+    rows, steps = SMALL[int(config["hilbert_space_dim"])]
+    return dict(config, n_steps=steps), cut(traffic, rows)
+
+
+def planted(fault: str):
+    """The fault in the CZ readout that the sweep's step ends in."""
+    from noisyquantumsimulator_tpu_torch import bench_gate
+    return faults.patched(bench_gate, "compute_cz_fidelity", fault, faults.cz_members)
 
 
 class Program:

@@ -4,17 +4,20 @@ A run, in order:
   1. loads the cell's configuration (`configs/`), traffic mix (`traffic/`)
      and limits (`limits/<cell>.json`), and the adapter its mix names
      (`entries/<entry>.py`);
-  2. builds the program's entry (the span `build_s`) and warms up the
-     cell's own shapes with the mix's first steps: set-up ends there;
+  2. builds the program's entry (the span `build_s`), warms up the cell's
+     own shapes with the mix's first steps, and touches a pool of host
+     memory for the window's answers: set-up ends there;
   3. drives the entry in a closed loop for `--seconds`: one caller, which
      draws a step's fresh inputs from the seeded stream and waits for its
-     outputs on the host. A step that raises or answers out of range
-     fails. With `--trace 1` the profiler records a fixed number of steady
+     outputs on the host. The loop keeps no inputs (the check draws them
+     again from the seed) and copies each step's answers into the pool, so
+     that no step faults in fresh pages. A step that raises or answers out
+     of range fails. With `--trace 1` the profiler records a fixed number of steady
      steps inside the window: the device's activity, and the host's where
      the mix does not set "trace_host" false;
   4. reads the device's peak memory, frees the program, and holds a sample
-     of the timed steps' answers, drawn from the seed, against the plain
-     reference (`reference/`);
+     of the timed steps' answers, drawn from the seed, against the entry's
+     plain reference model of the configuration (`model`, `check`);
   5. prints the cell's metrics (end-to-end with `--trace 0`, per layer with
      `--trace 1`), each computed by its reader `metrics/<name>.py`.
 
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -38,11 +42,12 @@ from typing import List, Optional
 import numpy as np
 
 from nqs_bench import traffic, tracing
-from nqs_bench.reference import gate_model
 
 PKG = "nqs_bench"
 # top-level module names that may not be loaded in a run's process
 FORBIDDEN = ("jax", "jaxlib", "flax", "noisyquantumsimulator_tpu")
+# the most host memory that the answers' pool takes (Cell.warm_up)
+POOL_BYTES = 2 << 30
 
 
 def load_json(path: str):
@@ -73,8 +78,14 @@ def _module_name(kind: str, name: str) -> str:
 
 
 def entry_module(root: str, name: str):
-    return load_module(os.path.join(root, PKG, "entries", f"{name}.py"),
-                       _module_name("entry", name))
+    """The adapter `entries/<name>.py` of the checkout at `root`, loaded once
+    a process, as an import is: the harness's cell and a fault planted by
+    `faults.planted` act on one module."""
+    path = os.path.realpath(os.path.join(root, PKG, "entries", f"{name}.py"))
+    key = f"{_module_name('entry', name)}_{hashlib.sha1(path.encode()).hexdigest()[:12]}"
+    if key not in sys.modules:
+        sys.modules[key] = load_module(path, key)
+    return sys.modules[key]
 
 
 def metric_reader(root: str, name: str):
@@ -108,7 +119,8 @@ def _sync(device) -> None:
 
 @dataclass
 class Window:
-    inputs: list = field(default_factory=list)
+    stream: traffic.Stream                          # the steps' inputs came from
+    start: int                                      # its draws before the first step
     outputs: list = field(default_factory=list)     # None where a step failed
     durations: List[float] = field(default_factory=list)
     seconds: float = 0.0
@@ -119,6 +131,11 @@ class Window:
     @property
     def attempted(self) -> int:
         return len(self.durations)
+
+    def inputs(self) -> list:
+        """The steps' inputs, drawn again from the seed: the loop keeps
+        none, so that no step takes fresh memory for them."""
+        return self.stream.replay(self.start, self.attempted)
 
 
 class Cell:
@@ -136,6 +153,7 @@ class Cell:
         self.limits = load_json(os.path.join(root, PKG, "limits", f"{name}.json"))
         self.spans = {}
         self.program = None
+        self.pool = None
 
     def build(self) -> None:
         t0 = time.perf_counter()
@@ -146,9 +164,22 @@ class Cell:
     def stream(self, seed: int) -> traffic.Stream:
         return traffic.Stream(self.traffic["inputs"], seed, self.device)
 
-    def warm_up(self, stream: traffic.Stream) -> None:
+    def warm_up(self, stream: traffic.Stream, seconds: float = 0.0) -> None:
+        """The mix's warm-up steps. With `seconds`, then the pool that the
+        next window copies each step's answers into, touched now: room for
+        twice the steps that fit in `seconds` at the last warm-up step's
+        pace, so that the window's steps reuse host memory instead of
+        faulting in fresh pages; steps beyond it keep their own arrays."""
+        out, dt = None, 0.0
         for _ in range(int(self.traffic["warmup_steps"])):
-            self.program.step(stream.next())
+            t0 = time.perf_counter()
+            out = self.program.step(stream.next())
+            dt = time.perf_counter() - t0
+        self.pool = None
+        if seconds > 0 and isinstance(out, np.ndarray) and out.nbytes:
+            rows = min(int(2 * seconds / max(dt, 1e-4)) + 16, POOL_BYTES // out.nbytes)
+            self.pool = np.empty((rows, *out.shape), out.dtype)
+            self.pool.fill(0)
 
     def window(self, stream: traffic.Stream, seconds: float,
                trace: bool = False) -> Window:
@@ -157,7 +188,9 @@ class Cell:
         profiled with `trace`: the device's activity, and the host's ops
         unless the mix sets "trace_host" false."""
         import torch
-        win = Window()
+        win = Window(stream, stream.drawn)
+        pool, self.pool = self.pool, None     # one window's answers
+        traced = []
         first = 2
         last = first + int(self.traffic["trace_steps"]) if trace else 0
         prof = None
@@ -186,7 +219,12 @@ class Cell:
                     win.error = traceback.format_exc()
             t1 = time.perf_counter()
             win.durations.append(t1 - t0)
-            win.inputs.append(x)
+            if prof is not None:
+                traced.append(x)
+            if (ok and pool is not None and k < len(pool) and isinstance(out, np.ndarray)
+                    and out.shape == pool.shape[1:] and out.dtype == pool.dtype):
+                pool[k] = out
+                out = pool[k]
             win.outputs.append(out if ok else None)
             win.failed += not ok
             if prof is not None and win.attempted == last:
@@ -194,7 +232,7 @@ class Cell:
                 traced_s = time.perf_counter() - t_trace
                 prof.__exit__(None, None, None)
                 win.trace = {"profile": prof, "first": first, "steps": last - first,
-                             "inputs": win.inputs[first:last], "window_s": traced_s}
+                             "inputs": traced, "window_s": traced_s}
                 prof = None
             if t1 - t_start >= seconds and (not trace or win.attempted >= last):
                 break
@@ -203,16 +241,17 @@ class Cell:
 
     def judge(self, seed: int, win: Window, control: bool = False):
         """The compared numbers of the window's answers (the entry's
-        `check`, with a generator seeded by the run's seed for what it
-        samples): the program's answers, or (control) the reference's own in
-        TF32, each against the reference in float64. None if no step
-        answered."""
+        `check` on the entry's reference `model` of the configuration, with
+        a generator seeded by the run's seed for what it samples): the
+        program's answers, or (control) the entry's control in their place.
+        None if no step answered."""
         done = [k for k, o in enumerate(win.outputs) if o is not None]
         if not done:
             return None
         rng = np.random.default_rng([int(seed) % (1 << 63), 1])
-        model = gate_model.build(self.config, self.entry.SETTINGS)
-        return self.entry.check(model, self.traffic, [_host(win.inputs[k]) for k in done],
+        model = self.entry.model(self.config)
+        xs = win.inputs()
+        return self.entry.check(model, self.traffic, [_host(xs[k]) for k in done],
                                 [win.outputs[k] for k in done], rng, self.device, control)
 
     def verdict(self, numbers) -> bool:
@@ -221,9 +260,13 @@ class Cell:
 
 
 def _host(v) -> np.ndarray:
+    """A step's inputs on the host: integers (seeds) as int64, exact, and
+    everything else as float64."""
     if hasattr(v, "detach"):
         v = v.detach().cpu().numpy()
-    return np.asarray(v, np.float64)
+    v = np.asarray(v)
+    return v.astype(np.int64 if np.issubdtype(v.dtype, np.integer) else np.float64,
+                    copy=False)
 
 
 def _trace_view(root: str, cell: Cell, win: Window) -> Optional[dict]:
@@ -261,7 +304,7 @@ def measure(root: str, bench: dict, name: str, seed: int, seconds: float,
     cell.build()
     stream = cell.stream(seed)
     t_built = time.perf_counter()
-    cell.warm_up(stream)
+    cell.warm_up(stream, seconds)
     _sync(cell.device)
     setup_s = time.perf_counter() - t_process
     print(f"set-up {setup_s:.3f} s: imports {t_imported - t_process:.3f} s, entry "

@@ -12,33 +12,28 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# the copy's sizes: rows a step and answers compared (all of a one-step
-# window), per mix; segments per configuration
-SMALL_TRAFFIC = {"sweep-32768": 8, "sweep-8192": 2, "population-1024": 8}
-SMALL_STEPS = {3: 60, 4: 12}
-
-
-def make_small_root(dest: str) -> str:
-    """A root holding BENCHMARK.json and the benchmark's data files, cut to
-    SMALL_TRAFFIC rows and SMALL_STEPS segments; limits as committed."""
+def make_small_root(dest: str, src: str = ROOT) -> str:
+    """A root holding the BENCHMARK.json and the benchmark's data files of
+    the checkout at `src`, each cell's configuration and mix cut by its
+    entry's `small` to sizes a CPU test run holds; limits as committed."""
+    from nqs_bench import harness
     for sub in ("configs", "traffic", "limits", "entries", "metrics"):
-        shutil.copytree(os.path.join(ROOT, "nqs_bench", sub),
+        shutil.copytree(os.path.join(src, "nqs_bench", sub),
                         os.path.join(dest, "nqs_bench", sub))
-    shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dest)
-    for name, n in SMALL_TRAFFIC.items():
-        p = os.path.join(dest, "nqs_bench", "traffic", f"{name}.json")
-        with open(p) as f:
-            t = json.load(f)
-        t["inputs"]["count"] = n
-        t.update(check_members=n, warmup_steps=1, trace_steps=2)
-        with open(p, "w") as f:
-            json.dump(t, f)
-    for p in os.scandir(os.path.join(dest, "nqs_bench", "configs")):
-        with open(p.path) as f:
-            c = json.load(f)
-        c["n_steps"] = SMALL_STEPS[c["hilbert_space_dim"]]
-        with open(p.path, "w") as f:
-            json.dump(c, f)
+    shutil.copy(os.path.join(src, "BENCHMARK.json"), dest)
+    bench = harness.load_benchmark(src)
+    cut = {}
+    for cell in bench["workloads"]:
+        files = (harness.find(bench["configs"], cell["config"])["file"],
+                 os.path.join("nqs_bench", "traffic", f"{cell['traffic']}.json"))
+        config, mix = (harness.load_json(os.path.join(src, f)) for f in files)
+        entry = harness.entry_module(src, mix["entry"])
+        for f, data in zip(files, entry.small(config, mix)):
+            if cut.setdefault(f, data) != data:
+                raise ValueError(f"two cells cut {f} to different sizes")
+    for f, data in cut.items():
+        with open(os.path.join(dest, f), "w") as out:
+            json.dump(data, out)
     return dest
 
 

@@ -9,7 +9,7 @@ from nqs_bench import calibrate, harness
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("name", ["cz3-sweep", "cz4-sweep", "cz3-optimize"])
+@pytest.mark.parametrize("name", ["cz3-sweep", "cz4-sweep", "cz3-optimize-8192"])
 def test_control_fails_and_program_passes(cuda, name):
     cell = harness.Cell(ROOT, harness.load_benchmark(ROOT), name, "cuda")
     cell.build()

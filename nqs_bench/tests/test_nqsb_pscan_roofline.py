@@ -19,7 +19,7 @@ PSCAN = ("void (anonymous namespace)::population_scan_kernel<float, 3>"
 def _ctx(device, steps=2):
     with open(os.path.join(ROOT, "nqs_bench", "configs", "rb87-smoothjp-3level.json")) as f:
         config = json.load(f)
-    mix = traffic.load(ROOT, "population-1024")
+    mix = traffic.load(ROOT, "population-8192")
     return SimpleNamespace(config=config, traffic=mix, trace={
         "device": device, "steps": steps, "first": 2, "inputs": []})
 
@@ -47,12 +47,13 @@ def test_share_of_a_known_duration():
     # two traced steps, one 500 us launch each (and a memcpy, not a kernel)
     dev = [(0.0, 500.0, PSCAN, "kernel"), (500.0, 900.0, PSCAN, "memcpy"),
            (1000.0, 1500.0, PSCAN, "kernel")]
-    bound = peaks.bound_s(pscan.flops(1024, 5, 81, 300),
-                          pscan.nbytes(1024, 5, 81, 36, 300))
-    assert bound == pytest.approx(2.01553e10 / 495e12, rel=1e-5)
+    # the mix's 8192 members
+    bound = peaks.bound_s(pscan.flops(8192, 5, 81, 300),
+                          pscan.nbytes(8192, 5, 81, 36, 300))
+    assert bound == pytest.approx(8 * 2.01553e10 / 495e12, rel=1e-5)
     got = _read("pscan_roofline", _ctx(dev))
     assert got == pytest.approx(100.0 * bound / 500e-6)
-    assert 8.0 < got < 8.3
+    assert 64.0 < got < 66.4
 
 
 def test_k1_and_k2_rooflines_do_not_count_it():

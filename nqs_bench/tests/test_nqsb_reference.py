@@ -89,7 +89,7 @@ def test_population_reference_equals_the_programs_complex128_objective():
     from noisyquantumsimulator_tpu_torch.optimize.apparatus import ApparatusConstraints
     cfg = dict(_config(3), n_steps=60)
     m = gate_model.build(cfg, "population")
-    spec = dict(traffic.load(ROOT, "population-1024")["inputs"], count=4)
+    spec = dict(traffic.load(ROOT, "population-8192")["inputs"], count=4)
     x = traffic.Stream(spec, 9, "cpu").next()
     ref = population.reference(m, x, "float64", "cpu")
     app = ApparatusConstraints()

@@ -57,7 +57,7 @@ def test_k2_squarings_equal_the_programs():
     from noisyquantumsimulator_tpu_torch.optimize.apparatus import ApparatusConstraints
     with open(os.path.join(ROOT, "nqs_bench", "configs", "rb87-smoothjp-3level.json")) as f:
         config = json.load(f)
-    spec = dict(traffic.load(ROOT, "population-1024")["inputs"], count=64)
+    spec = dict(traffic.load(ROOT, "population-8192")["inputs"], count=64)
     x = traffic.Stream(spec, 4, "cpu").next()
     s = k2.population_squarings(config, x)
     app = ApparatusConstraints()
@@ -77,9 +77,9 @@ def test_step_flops_cover_the_scan():
         config = json.load(f)
     sweep = traffic.load(ROOT, "sweep-32768")
     assert step.flops("sweep", config, sweep) == k1.flops(32768, 5, 81, 300)
-    pop = traffic.load(ROOT, "population-1024")
+    pop = traffic.load(ROOT, "population-8192")
     assert step.flops("population", config, pop, 10.0) == (
-        k1.flops(1024, 5, 81, 300) + 1024 * 6 * 2 * 81 ** 3 + 10.0)
+        k1.flops(8192, 5, 81, 300) + 8192 * 6 * 2 * 81 ** 3 + 10.0)
     assert step.flops("other", config, pop) is None
 
 
