@@ -346,8 +346,7 @@ def main_bb(rounds: int = 3, p: float = 1e-3, shots: int = 8192,
     as one JSON line and returns it."""
     dev = _device(device)
     w = build_bb_workload(rounds, p, shots, fast_iters, dev)
-    f, b, dets_r, bel_r, obs_r = w.e2e(_generator(dev, 0))     # warm-up
-    w.osd_host(int(b), dets_r, bel_r, obs_r)
+    w.step(_generator(dev, 0))                                 # warm-up
     _sync(dev)
 
     t0 = time.perf_counter()

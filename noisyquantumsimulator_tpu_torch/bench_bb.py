@@ -5,7 +5,7 @@ Counterpart of the reference's `bench.py` `main_bb` (`--bb`): the
 rate p. One end-to-end rep on the device is
 
   1. sample `shots` shots of detectors and observables (fast_sampler)
-  2. tiered DEM-BP (DemBPDecoder._full): `fast_iters` bf16 min-sum on every
+  2. tiered DEM-BP (DemBPDecoder.tiered): `fast_iters` bf16 min-sum on every
      shot, then a damped float32 90-iteration retry on the compacted
      non-converged tail; kernel K3 runs every check-node update
   3. score the predictions against the observables, count failures among
@@ -15,6 +15,13 @@ rate p. One end-to-end rep on the device is
 and on the host, native OSD-0 on that residue (`osd_host`). `e2e` makes no
 host synchronisation, so callers can queue several reps before reading any
 (as `main_bb` does, letting host OSD overlap device work).
+
+`step` is one rep read back at once, shot by shot: e2e, then OSD-0 on the
+residue, returning in one host array (`answers`) every shot's predicted
+observable flips (the OSD-0 rows' written over theirs), the tier that
+decided it and the reliability of its beliefs, then the rep's failure
+count. It is the span nqs.step, around nqs.sample, nqs.decode and nqs.osd
+(`utils/observability`).
 
 This module builds the workload and has no timing code of its own; callers
 time it (chip_smoke.py does).
@@ -31,12 +38,14 @@ from .qec.dem_decoder import DemBPDecoder
 from .qec.fast_sampler import build_fast_sampler
 from .qec.ldpc import bb_memory_circuit, css_n_k, gross_code
 from .qec.native import osd0_batch_native
+from .utils.observability import span
 
 
 @dataclass
 class BBWorkload:
     e2e: Callable            # e2e(generator) -> (fails, n_bad, dets, beliefs, obs)
     osd_host: Callable       # osd_host(n_bad, dets, beliefs, obs) -> failures
+    step: Callable           # step(generator) -> (shots + 1, 3) int32 (`answers`)
     decoder: DemBPDecoder
     circuit: object
     sampler: Callable
@@ -75,9 +84,9 @@ def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
     obs_cols = np.stack([(dec.obs_mask >> b) & 1 for b in range(k)],
                         axis=1)                               # (n_var, k)
 
-    def e2e(generator: torch.Generator):
+    def rep(generator: torch.Generator):
         o = sampler(generator)
-        pred, bad, beliefs = dec._full(o["detectors"].to(torch.float32))
+        pred, bad, beliefs, missed = dec.tiered(o["detectors"].to(torch.float32))
         obs = o["observables"].to(torch.int32)                # (S, k)
         pb = (pred[:, None] >> bits[None, :]) & 1
         fail = (pb != obs).any(dim=1)
@@ -86,27 +95,77 @@ def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
         _, idx = torch.topk(bad.to(torch.int32), cap)
         return ((fail & ~bad).sum(), bad.sum(),
                 o["detectors"].index_select(0, idx),
-                beliefs.index_select(0, idx), obs.index_select(0, idx))
+                beliefs.index_select(0, idx), obs.index_select(0, idx)), \
+            (pred, bad, missed, beliefs, idx)
 
-    def osd_host(n_bad: int, dets_r, bel_r, obs_r) -> int:
-        """OSD-0 the residue rows; returns the failures among them."""
+    def e2e(generator: torch.Generator):
+        return rep(generator)[0]
+
+    def osd_bits(n_bad: int, dets_r, bel_r) -> np.ndarray:
+        """(n_bad, k) predicted observable flips of the residue rows by OSD-0."""
         if n_bad > cap:
             raise RuntimeError(f"residue cap {cap} < non-converged {n_bad}: "
                                "the failure count would be short")
         if n_bad == 0:
-            return 0
+            return np.zeros((0, k), np.int64)
         dets_h = dets_r[:n_bad].cpu().numpy()
         bel_h = bel_r[:n_bad].cpu().numpy()
-        obs_h = obs_r[:n_bad].cpu().numpy()
         est = osd0_batch_native(dec.H, dets_h, bel_h)
-        pb = (est.astype(np.int64) @ obs_cols) & 1            # (R, k)
+        return (est.astype(np.int64) @ obs_cols) & 1
+
+    def osd_host(n_bad: int, dets_r, bel_r, obs_r) -> int:
+        """OSD-0 the residue rows; returns the failures among them."""
+        if n_bad == 0:
+            return 0
+        pb = osd_bits(n_bad, dets_r, bel_r)
+        obs_h = obs_r[:n_bad].cpu().numpy()
         return int((pb != obs_h).any(axis=1).sum())
+
+    first = True
+
+    def step(generator: torch.Generator) -> np.ndarray:
+        # the span nqs.step; the first call (the libraries' load, the first
+        # device calls) is recorded in any case
+        nonlocal first
+        with span("nqs.step", always=first):
+            first = False
+            (fails, n_bad, dets_r, bel_r, obs_r), (pred, bad, missed, beliefs, idx) = \
+                rep(generator)
+            tier = missed.to(torch.int32) + bad.to(torch.int32)
+            rel = torch.linalg.vector_norm(beliefs, float("-inf"), dim=1)
+            rel = torch.round(rel * RELIABILITY_UNITS).clamp(max=2.0 ** 30).to(torch.int32)
+            shots_h = torch.stack([pred, tier, rel], dim=1).cpu().numpy()
+            nb = int(n_bad)
+            with span("nqs.osd") as s:
+                s.note(nb)
+                pb = osd_bits(nb, dets_r, bel_r)
+                obs_h = obs_r[:nb].cpu().numpy()
+                rows = idx[:nb].cpu().numpy()
+            shots_h[rows, 0] = (pb << np.arange(k)).sum(axis=1)
+            n_fail = int(fails) + int((pb != obs_h).any(axis=1).sum())
+            return answers(shots_h, n_fail, k)
 
     label = (f"tiered slot-BP (min-sum {eff_iters} iters bf16 + damped "
              "min-sum 90-iter retry) + C++ OSD-0 on the non-converged residue")
-    return BBWorkload(e2e=e2e, osd_host=osd_host, decoder=dec,
+    return BBWorkload(e2e=e2e, osd_host=osd_host, step=step, decoder=dec,
                       circuit=circuit, sampler=sampler, n=n, k=k, cap=cap,
                       fast_iters=eff_iters, decoder_label=label)
 
 
-__all__ = ["BBWorkload", "build_bb_workload"]
+# the reliability of a shot's beliefs (the least |belief| over its
+# mechanisms, a log-likelihood ratio) is given in units of 1 / RELIABILITY_UNITS
+RELIABILITY_UNITS = 1024
+
+
+def answers(shots: np.ndarray, n_fail: int, k: int) -> np.ndarray:
+    """A step's answers as one (S + 1, 3) int32 host array. Row i < S is
+    shot i: its predicted observable flips (bit b is observable b), the
+    tier that decided it (0: the fast BP tier, 1: the retry, 2: OSD-0) and
+    the reliability of the beliefs it was decided from (the fast tier's
+    where that tier decided it). The last row is (the step's failures, k,
+    0)."""
+    return np.concatenate([shots.astype(np.int32),
+                           np.array([[n_fail, k, 0]], np.int32)])
+
+
+__all__ = ["BBWorkload", "build_bb_workload", "answers", "RELIABILITY_UNITS"]

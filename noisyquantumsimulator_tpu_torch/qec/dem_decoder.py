@@ -17,6 +17,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.observability import span
 from .dem import build_dem
 from .ldpc import _bp_edges, _bp_slots, build_slot_tables, slot_tables_on
 from .native import osd0_batch_native
@@ -82,6 +83,9 @@ class DemBPDecoder:
         self.probs = np.asarray(probs, np.float64)
         self.n_det, self.n_mech = self.H.shape
         self.retry_cap_divisor = int(retry_cap_divisor)
+        self.scale, self.fast_iters, self.fast_dtype = float(scale), int(fast_iters), fast_dtype
+        self.retry_damping = float(retry_damping)
+        self.retry_iters = int(retry_iters or n_iters + n_iters // 2)
         if fast_iters >= n_iters:
             raise ValueError("fast_iters must be below n_iters")
         llr = np.log((1.0 - self.probs) / self.probs)
@@ -115,8 +119,7 @@ class DemBPDecoder:
 
         self._bp = make_bp(n_iters)
         if kernel == "slots" and retry_damping > 0.0:
-            self._bp_retry = make_bp(retry_iters or n_iters + n_iters // 2,
-                                     damping=retry_damping)
+            self._bp_retry = make_bp(self.retry_iters, damping=retry_damping)
         else:
             self._bp_retry = self._bp
         self._bp_fast = make_bp(fast_iters, dtype=fast_dtype) \
@@ -154,25 +157,35 @@ class DemBPDecoder:
         """dets_f (S, n_det) float32 on the decoder's device -> (pred (S,)
         int32, bad (S,) bool, beliefs (S, n_var) float32), all on the
         device, with no host synchronisation."""
+        return self.tiered(dets_f)[:3]
+
+    def tiered(self, dets_f: torch.Tensor):
+        """`_full`'s (pred, bad, beliefs), then missed (S,) bool: the shots
+        whose first BP pass left the syndrome unmatched (the fast tier's, or
+        the only pass's without tiering). The span nqs.decode."""
+        with span("nqs.decode"):
+            return self._tiers(dets_f)
+
+    def _tiers(self, dets_f: torch.Tensor):
         if self._bp_fast is None:
             est, beliefs = self._bp(dets_f)
             pred, bad = self.score(est, dets_f)
-            return pred, bad, beliefs
+            return pred, bad, beliefs, bad
         est, beliefs = self._bp_fast(dets_f)
-        pred, bad = self.score(est, dets_f)
+        pred, missed = self.score(est, dets_f)
         S = dets_f.shape[0]
         cap = min(S, max(S // self.retry_cap_divisor, 64))
-        _, idx = torch.topk(bad.to(torch.int32), cap)
+        _, idx = torch.topk(missed.to(torch.int32), cap)
         sub = dets_f.index_select(0, idx)
         est2, bel2 = self._bp_retry(sub)
         pred2, bad2 = self.score(est2, sub)
-        retry = bad.index_select(0, idx)
+        retry = missed.index_select(0, idx)
         pred = pred.index_copy(0, idx, torch.where(
             retry, pred2, pred.index_select(0, idx)))
-        bad = bad.index_copy(0, idx, retry & bad2)
+        bad = missed.index_copy(0, idx, retry & bad2)
         beliefs = beliefs.index_copy(0, idx, torch.where(
             retry[:, None], bel2, beliefs.index_select(0, idx)))
-        return pred, bad, beliefs
+        return pred, bad, beliefs, missed
 
     def decode_batch(self, detectors, osd: bool = True) -> np.ndarray:
         """detectors (S, n_det) 0/1 -> predicted observable bitmask (S,)

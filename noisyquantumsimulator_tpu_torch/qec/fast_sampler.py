@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.observability import span
 from .circuits import Circuit, detector_matrix, observable_matrix
 from .dem import _propagate_faults
 
@@ -223,6 +224,10 @@ def build_fast_sampler(circuit: Circuit, shots: int,
         return torch.rand(shape, generator=gen, device=dev)
 
     def sample(generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        with span("nqs.sample"):
+            return _sample(generator)
+
+    def _sample(generator: torch.Generator) -> Dict[str, torch.Tensor]:
         blocks = []
         if nb:
             blocks.append(uniform(generator, shots, nb) < bern_t)

@@ -8,12 +8,22 @@ A span marks one layer boundary of the gate engine:
   nqs.scan   the segment scan (`solver/real_rep`: K1's batch of schedules, the
              population's per-member scan)
 
-A record is `Span(name, start_ns, end_ns, parent, step)`. Its times come from
-`time.time_ns()`, the clock of torch.profiler's chrome trace (an event's
-`ts` in us x 1e3 plus the file's `baseTimeNanoseconds`), so a span is set
-against the device's events by a subtraction. `parent` is the index in
+and of the BB-LDPC memory step (`bench_bb.build_bb_workload`'s step, itself an
+nqs.step):
+
+  nqs.sample  one draw of the circuit sampler (`qec/fast_sampler`)
+  nqs.decode  the tiered BP decode (`qec/dem_decoder.DemBPDecoder.tiered`:
+              both tiers and the compaction between them)
+  nqs.osd     the host OSD-0 of the residue, its copy to the host included;
+              its count is the residue rows it decoded
+
+A record is `Span(name, start_ns, end_ns, parent, step, count)`. Its times
+come from `time.time_ns()`, the clock of torch.profiler's chrome trace (an
+event's `ts` in us x 1e3 plus the file's `baseTimeNanoseconds`), so a span is
+set against the device's events by a subtraction. `parent` is the index in
 `spans()` of the enclosing recorded span, or -1; `step` that of the enclosing
-`nqs.step` span (a step's own index), or -1.
+`nqs.step` span (a step's own index), or -1. `count` is the one integer a
+span may carry (`span.note(n)` inside the block), or None.
 
 A span is recorded while a torch.profiler records (whatever its
 activities), and inside a span opened with `always=True`: the program opens
@@ -46,9 +56,10 @@ class Span(NamedTuple):
     end_ns: Optional[int]        # None while the span is open
     parent: int
     step: int
+    count: Optional[int] = None
 
 
-_records: List[list] = []        # [name, start_ns, end_ns, parent, step]
+_records: List[list] = []        # [name, start_ns, end_ns, parent, step, count]
 _open: List[int] = []            # indices of the open recorded spans, innermost last
 _forced = 0                      # open recorded spans opened with always=True
 
@@ -72,7 +83,7 @@ class span:
         index = len(_records)
         parent = _open[-1] if _open else -1
         step = index if self.name == STEP else (_records[parent][4] if parent >= 0 else -1)
-        self.rec = [self.name, 0, None, parent, step]
+        self.rec = [self.name, 0, None, parent, step, None]
         _records.append(self.rec)
         _open.append(index)
         self.rec[1] = time.time_ns()
@@ -87,6 +98,11 @@ class span:
             if _open:
                 _open.pop()
         return False
+
+    def note(self, count: int) -> None:
+        """Sets the count of the span's record, if the span is recorded."""
+        if self.rec is not None:
+            self.rec[5] = int(count)
 
 
 def spans() -> List[Span]:
