@@ -11,6 +11,7 @@ port's studies package (the gate, QEC and platform studies).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only k2          (phases 1, 2 and 9)
+    python3 chip_smoke.py --only bb          (phases 1, 2, 7 and 8)
     python3 chip_smoke.py --only optimizer   (phases 1, 2, 9 and 10)
     python3 chip_smoke.py --only gradients   (phases 1, 2 and 11)
     python3 chip_smoke.py --only channel     (phases 1, 2 and 12)
@@ -30,8 +31,8 @@ each; any failure raises and the script exits non-zero:
 
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
-              ptxas registers and spills of K1, K2 and the population scan
-              (no spills allowed);
+              ptxas registers and spills of K1, K2, the population scan and
+              the min-sum v2c kernel (no spills allowed);
               the time of one empty kernel launch
   3. K1       the phase-scan kernel vs its plain twin at the bench layout
               (n = 81, S = 5, 300 steps, B = 1024; n = 256, B = 256), f32/f64
@@ -53,9 +54,12 @@ each; any failure raises and the script exits non-zero:
   8. bb       the BB-LDPC memory path (bench_bb.build_bb_workload): gross
               code [[144,12]], 3 rounds, p = 1e-3, 65,536 shots, one warm-up
               rep and 3 timed reps queued before any sync: shots/s,
-              p_logical with its Wilson CI, K3's launch count in that run;
+              p_logical with its Wilson CI, the launch counts of K3 and of
+              the v2c kernel in that run (98 a rep each: 7 fast, 91 retry);
               the card's tiered decode vs the CPU twin path on 4096 shots;
-              then K3's time vs its twin's
+              then K3's and the v2c kernel's times vs their twins' at the
+              two tiers' shapes, the v2c kernel's messages and beliefs
+              bit-exact to its twin's there
   9. K2 batched  K2 vs its twin and torch.linalg.matrix_power at the shapes
               where it does real work (K2_BATCHED: optimizer populations,
               bang-bang segments, the per-segment engine at dim 3 and 4, the
@@ -247,6 +251,7 @@ PSCAN_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/population_scan.cu"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
+V2C_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_v2c.cu"
 # the keys of the reference's bench.py records (main, main_bb), in its order;
 # the port's gate record adds power_limit after device
 GATE_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_sims_per_sec",
@@ -384,6 +389,14 @@ def phase_build():
         what = f"<{m.group(1)}, {m.group(2)}>" if m else name
         say("2 build", f"ptxas population scan {what}: {regs} registers, spill "
             f"stores {st} B, spill loads {ld} B, stack frame {stack.get(name)} B")
+        require(st == 0 and ld == 0, f"{name} spills")
+    v2c = [r for r in _kernels.ptxas_report() if "v2c_kernel" in r[0]]
+    require(len(v2c) == 4, f"ptxas report of the 4 v2c kernels, got {len(v2c)}")
+    for name, regs, st, ld in v2c:
+        m = re.search(r"kernelI(.+?)Li(\d+)EE", name)
+        what = f"<{m.group(1)}, {m.group(2)}>" if m else name
+        say("2 build", f"ptxas v2c {what}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B, stack frame {stack.get(name)} B")
         require(st == 0 and ld == 0, f"{name} spills")
 
 
@@ -850,6 +863,8 @@ def phase_k3():
     lib = _kernels.load()
     require(lib.nqs_bp_c2v_max_slots() == bp_cuda.MAX_SLOTS,
             "K3 slot limit of the library = bp_cuda.MAX_SLOTS")
+    require(lib.nqs_bp_v2c_max_degree() == bp_cuda.MAX_DEGREE,
+            "v2c degree limit of the library = bp_cuda.MAX_DEGREE")
     rng = np.random.default_rng(SEED + 3)
     errs = {}
     for shape in K3_SHAPES:
@@ -910,7 +925,7 @@ def phase_bb(errs_k3):
     torch.cuda.synchronize()
 
     # --- the main path, counted: only the timed reps run between reset and read
-    bp_cuda.c2v.launches = 0
+    bp_cuda.c2v.launches = bp_cuda.v2c.launches = 0
     t0 = time.perf_counter()
     fails = bad = 0
     # queue every rep before syncing any, so host OSD of rep r overlaps
@@ -922,7 +937,7 @@ def phase_bb(errs_k3):
         bad += nb
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bp_cuda.c2v.launches
+    launches, v2c_launches = bp_cuda.c2v.launches, bp_cuda.v2c.launches
     n_tot = shots * reps
     rate = n_tot / wall
     p_l = fails / n_tot
@@ -930,9 +945,11 @@ def phase_bb(errs_k3):
     say("8 bb", f"{reps} reps x {shots} shots in {wall:.4f} s -> {rate:.1f} "
         f"shots/s; e2e_n_errors = {fails}, p_logical = {p_l:.3e} (95% Wilson "
         f"CI [{lo:.3e}, {hi:.3e}]); non-converged fraction {bad / n_tot:.4e} "
-        f"({bad} OSD residue rows, cap {w.cap} per rep); K3 launches in the "
-        f"timed reps: {launches}")
-    require(launches > 0, "K3 launched on the BB path")
+        f"({bad} OSD residue rows, cap {w.cap} per rep); launches in the timed "
+        f"reps: K3 {launches}, v2c {v2c_launches}")
+    per_rep = (w.fast_iters + 1) + (dec.retry_iters + 1)
+    require(launches == v2c_launches == per_rep * reps,
+            f"K3 and v2c launch {per_rep} times a rep (7 fast + 91 retry)")
     require(p_l <= 1e-4, f"p_logical_shot {p_l:.3e} <= 1e-4")
 
     # --- the card's tiered decode vs the CPU twin path on one detector batch
@@ -974,15 +991,72 @@ def phase_bb(errs_k3):
         del msg, ss
         torch.cuda.empty_cache()
     shape = (26, 288, 65536)
-    return {"name": "K3 bp_c2v", "route": "cuda", "source": K3_SOURCE,
-            "replaces": K3_REPLACES, "launches": launches,
-            "max_abs_err": errs_k3[(shape, "torch.bfloat16")],
-            "ms": timing[shape][0], "plain_ms": timing[shape][1],
-            "bound_ms": timing[shape][2], "bound_by": "bytes",
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes normalized "
-                            "min-sum check-to-variable messages",
-            "shape": "w_max=26 n_chk=288 S=65536 bf16"}
+    k3_row = {"name": "K3 bp_c2v", "route": "cuda", "source": K3_SOURCE,
+              "replaces": K3_REPLACES, "launches": launches,
+              "max_abs_err": errs_k3[(shape, "torch.bfloat16")],
+              "ms": timing[shape][0], "plain_ms": timing[shape][1],
+              "bound_ms": timing[shape][2], "bound_by": "bytes",
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes normalized "
+                              "min-sum check-to-variable messages",
+              "shape": "w_max=26 n_chk=288 S=65536 bf16"}
+
+    # --- the v2c kernel vs its twin at the tiers' shapes (not counted): the
+    # fast tier's message pass (bf16, undamped) and the retry's (f32, damped)
+    tables = dec._bp_fast.keywords["tables"]
+    n_edges = int(dec.H.sum())
+    rows = {}
+    for S_t, dt, damping, reps_t in ((65536, torch.bfloat16, 0.0, 20),
+                                     (512, torch.float32, 0.5, 200)):
+        g = gen(SEED + 9)
+        msg_cv = (4 * torch.randn((tables["Ec"], S_t), generator=g,
+                                  device="cuda")).to(dt)
+        msg_vc = (4 * torch.randn((tables["Ec"], S_t), generator=g,
+                                  device="cuda")).to(dt)
+        msg_vc[tables["pad_c"]] = bp_cuda.BIG
+        llr = torch.as_tensor(np.log((1 - dec.probs) / dec.probs), device="cuda").to(dt)
+        got = bp_cuda.v2c(msg_cv, llr, tables, msg_vc.clone(), damping)
+        ref = bp_cuda._v2c_plain(msg_cv, llr, tables, msg_vc.clone(), damping)
+        bel = bp_cuda.v2c(msg_cv, llr, tables)
+        bel_ref = bp_cuda._v2c_plain(msg_cv, llr, tables)
+        torch.cuda.synchronize()
+        n_msg, n_bel = int((got != ref).sum()), int((bel != bel_ref).sum())
+        err = max(float((got.float() - ref.float()).abs().max()),
+                  float((bel.float() - bel_ref.float()).abs().max()))
+        # the gross DEM's variables have <= 3 edges, which the twin's sum
+        # adds in slot order as the kernel does: both modes equal it bit for
+        # bit (the damped retry shape checks the blend)
+        require(n_msg == 0 and n_bel == 0,
+                f"v2c {dt} damping {damping}: messages and beliefs equal the "
+                f"twin's ({n_msg} and {n_bel} differ)")
+        out_k, out_p = msg_vc.clone(), msg_vc.clone()
+        k_ms, p_ms = _kernel_vs_plain_ms(
+            lambda: bp_cuda.v2c(msg_cv, llr, tables, out_k, damping),
+            lambda: bp_cuda._v2c_plain(msg_cv, llr, tables, out_p, damping),
+            reps=reps_t)
+        # each edge's message in and its new message out (the old one in too
+        # when damped); the priors and the index table
+        item = msg_cv.element_size()
+        nbytes = (item * S_t * n_edges * (3 if damping else 2)
+                  + item * len(llr) + tables["cpos_of_vslot"].numel() * 8)
+        bound = nbytes / PEAK_BYTES * 1e3
+        say("8 bb", f"v2c ({tables['Ec']} slots, {n_edges} edges, {S_t}) {dt} damping "
+            f"{damping}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s of "
+            f"{nbytes / 1e6:.1f} MB moved; bound {bound:.4f} ms at 3.35 TB/s), plain "
+            f"twin {p_ms:.4f} ms; vs the twin: messages differ at {n_msg}, beliefs "
+            f"at {n_bel}, max|d| {err:.3e}")
+        rows[S_t] = (k_ms, p_ms, bound, err)
+        del msg_cv, msg_vc, got, ref, bel, bel_ref, out_k, out_p
+        torch.cuda.empty_cache()
+    k_ms, p_ms, bound, err = rows[65536]
+    v2c_row = {"name": "v2c bp_v2c", "route": "cuda", "source": V2C_SOURCE,
+               "replaces": None, "launches": v2c_launches, "max_abs_err": err,
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": "bytes",
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes min-sum "
+                               "variable-to-check messages",
+               "shape": f"Ec={tables['Ec']} edges={n_edges} S=65536 bf16"}
+    return [k3_row, v2c_row]
 
 
 # substrings of the names of cuBLAS / CUTLASS product kernels in a trace
@@ -3536,11 +3610,12 @@ def phase_platforms(launch_ms, F_c128=None):
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("k2", "optimizer", "gradients", "channel",
+    ap.add_argument("--only", choices=("k2", "bb", "optimizer", "gradients", "channel",
                                        "primitives", "surface", "architecture",
                                        "parallel", "surgery", "bench", "studies",
                                        "platforms"),
-                    help="run phases 1, 2 and 9 (k2), 1, 2, 9 and 10 "
+                    help="run phases 1, 2 and 9 (k2), 1, 2, 7 and 8 (bb), "
+                         "1, 2, 9 and 10 "
                          "(optimizer), 1, 2 and 11 (gradients), 1, 2 and 12 "
                          "(channel), 1, 2 and 13 (primitives), 1, 2 and 14 "
                          "(surface), 1, 2, 15 and 16 (architecture), 1, 2 and 17 "
@@ -3558,6 +3633,9 @@ def main(argv=None) -> int:
     launch_ms = _empty_launch_ms()
     say("2 build", f"one empty kernel launch: {launch_ms * 1e3:.3f} us (2000 "
         "back to back, best of 3): no kernel's bound is below it")
+    if args.only == "bb":
+        phase_bb(phase_k3())
+        return 0
     if args.only == "gradients":
         phase_gradients(launch_ms)
         return 0
@@ -3599,7 +3677,7 @@ def main(argv=None) -> int:
     F = phase_gate()
     kernels = phase_sweep(F["torch.complex64"], errs_k2, launch_ms)
     errs_k3 = phase_k3()
-    kernels.append(phase_bb(errs_k3))
+    kernels.extend(phase_bb(errs_k3))
     rows = phase_k2_batched(launch_ms)
     launches, _, pscan = phase_optimizer(launch_ms)
     kernels.extend(_k2_entries(rows, launches))

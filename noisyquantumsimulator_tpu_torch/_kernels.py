@@ -50,6 +50,9 @@ _SIGNATURES = {
     "nqs_bp_c2v_f32": (_P, _P, _P, _I, _I, _I, _F, _P),
     "nqs_bp_c2v_bf16": (_P, _P, _P, _I, _I, _I, _F, _P),
     "nqs_bp_c2v_max_slots": (),
+    "nqs_bp_v2c_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "nqs_bp_v2c_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P),
+    "nqs_bp_v2c_max_degree": (),
     "nqs_phase_scan_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_phase_scan_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_masked_squaring_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _P),

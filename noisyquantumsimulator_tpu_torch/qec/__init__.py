@@ -17,7 +17,9 @@ executor).
                    sampled and decoded on the device
   nn_decoder       MLP decoder over detector bits, trained on the device
   ldpc             BB codes, min-sum BP (dense, edge-list, slot layout), OSD-0
-  bp_cuda          kernel K3: the slot-layout check-node update, and its twin
+  bp_cuda          the slot-layout min-sum kernels: K3 (the check-node update)
+                   and v2c (the variable-node update and the beliefs), with
+                   their twins
   dem_decoder      tiered BP on the DEM + host OSD-0
   native           the C++ OSD-0, exact matcher and erasure peeler (built
                    with the host compiler)

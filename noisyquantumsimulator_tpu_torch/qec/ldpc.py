@@ -16,7 +16,8 @@ The [[144, 12, 12]] "gross code" uses l=12, m=6,
 A = x^3 + y + y^2, B = y^3 + x + x^2.
 
 The slot-layout min-sum (`_bp_slots`) runs its check-node update through
-kernel K3 (`bp_cuda.c2v`) on CUDA tensors.
+kernel K3 (`bp_cuda.c2v`) and its variable-node update through
+`bp_cuda.v2c` on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -445,10 +446,10 @@ def _bp_slots(syn, llr_var, tables, n_chk, n_var, n_iters, scale,
     _bp_edges, but messages live SHOTS-LAST in a dense (w_max * n_chk, S)
     tensor: the per-check reduction is over the major axis of a trivial
     (w_max, n_chk, S) reshape, and the two layout changes per iteration
-    are static row gathers (index_select on dim 0) of contiguous S-long
-    rows. The check-node update is kernel K3 (`bp_cuda.c2v`) on CUDA
-    tensors and its plain twin on CPU tensors; the variable-side sum is a
-    row gather plus a sum over the d_max slots.
+    are static row gathers of contiguous S-long rows. The check-node update
+    is kernel K3 (`bp_cuda.c2v`), the variable-node update and the beliefs
+    the kernel `bp_cuda.v2c`, on CUDA tensors; their plain twins on CPU
+    tensors. The variable side updates the messages in place.
 
     syn (S, n_chk) float32 in {0,1}; llr_var (n_var,) priors; `tables`
     from build_slot_tables (numpy, converted here) or slot_tables_on
@@ -464,7 +465,8 @@ def _bp_slots(syn, llr_var, tables, n_chk, n_var, n_iters, scale,
     iterate, msg <- (1-g)*new + g*old ("min-sum with memory"): plain
     min-sum oscillates on the short cycles of a circuit-level DEM Tanner
     graph, and the memory term breaks the oscillation. Costs one extra
-    (Ec, S) read per iteration; meant for the small compacted retry tier.
+    read of the messages per iteration; meant for the small compacted
+    retry tier.
     """
     S = syn.shape[0]
     if not isinstance(tables["pad_c"], torch.Tensor):
@@ -472,35 +474,22 @@ def _bp_slots(syn, llr_var, tables, n_chk, n_var, n_iters, scale,
     elif tables["pad_c"].device != syn.device:
         raise ValueError(f"slot tables on {tables['pad_c'].device}, syndromes "
                          f"on {syn.device}")
-    w_max, Ec, d_max = tables["w_max"], tables["Ec"], tables["d_max"]
-    pad_c = tables["pad_c"][:, None]                            # (Ec, 1)
-    var_of_cpos = tables["var_of_cpos"]                         # (Ec,)
-    cpos_of_vslot = tables["cpos_of_vslot"]                     # (n_var*d,)
+    w_max, Ec = tables["w_max"], tables["Ec"]
     llr_var = llr_var.to(dtype)
     sgn_syn = (1.0 - 2.0 * syn.T).to(dtype).contiguous()       # (n_chk, S)
-    llr_pos = torch.where(pad_c[:, 0], bp_cuda.BIG, llr_var[var_of_cpos])
+    # padding slots of the check layout hold +big from here on: the
+    # variable side never writes them
+    llr_pos = torch.where(tables["pad_c"], bp_cuda.BIG,
+                          llr_var[tables["var_of_cpos"]])
     msg_vc = llr_pos[:, None].expand(Ec, S).contiguous()
-    zero_row = torch.zeros((1, S), dtype=dtype, device=syn.device)
 
     def c2v(msg_vc):
         m3 = msg_vc.view(w_max, n_chk, S)
         return bp_cuda.c2v(m3, sgn_syn, scale).view(Ec, S)
 
-    def v2c(msg_cv):
-        # append the sentinel slot (value 0) for var-layout padding
-        mc = torch.cat([msg_cv, zero_row], dim=0)
-        gathered = mc.index_select(0, cpos_of_vslot).view(n_var, d_max, S)
-        total = llr_var[:, None] + gathered.sum(dim=1)         # (n_var, S)
-        back = total.index_select(0, var_of_cpos) - msg_cv
-        return torch.where(pad_c, bp_cuda.BIG, back), total
-
     for _ in range(n_iters):
-        new_vc, _ = v2c(c2v(msg_vc))
-        # padding slots blend +big with +big and stay exactly +big
-        msg_vc = ((1.0 - damping) * new_vc + damping * msg_vc) if damping \
-            else new_vc
-    _, belief = v2c(c2v(msg_vc))
-    belief = belief.T
+        bp_cuda.v2c(c2v(msg_vc), llr_var, tables, msg_vc, damping)
+    belief = bp_cuda.v2c(c2v(msg_vc), llr_var, tables).T
     return (belief < 0).to(torch.uint8), belief.float()
 
 

@@ -1,12 +1,15 @@
-"""Kernel K3's plain twin and the port's BP decoders against the JAX
-reference.
+"""Kernel K3's plain twin, the variable-side twin and the port's BP
+decoders against the JAX reference.
 
 Tolerances: the c2v twin against the Pallas kernel (interpret mode) is
 bit-equal at float32 and bfloat16 (every factor but one is +-1 or a
 storage-type value, so the one product rounds alike). The BP decoders run
 at float32 on both sides and differ only in the order of the variable-side
 sums, so hard decisions agree on >= 99.9% of entries and beliefs within
-1e-3, the bounds of the reference's own slot-vs-one-hot test.
+1e-3, the bounds of the reference's own slot-vs-one-hot test. The
+variable-side twin (`bp_cuda._v2c_plain`) is bit-equal to the torch ops it
+took over and to the kernel's arithmetic written out (a float32 sum in slot
+order, each later operation rounded once to the storage dtype).
 """
 import jax
 import jax.numpy as jnp
@@ -176,3 +179,154 @@ def test_run_bb_memory_matches_reference():
     assert r1.syndrome_weight_mean == r0.syndrome_weight_mean
     assert abs(r1.p_logical_shot - r0.p_logical_shot) <= 0.01
     assert abs(r1.decoder_converged_frac - r0.decoder_converged_frac) <= 0.01
+
+
+def _inline_v2c(msg_cv, llr_var, tables, msg_vc, damping):
+    """The variable side of `_bp_slots` as it was written inline before it
+    moved into `bp_cuda._v2c_plain`: (new messages, beliefs)."""
+    Ec, S = msg_cv.shape
+    n_var, d_max = llr_var.shape[0], tables["d_max"]
+    pad_c = tables["pad_c"][:, None]
+    zero_row = torch.zeros((1, S), dtype=msg_cv.dtype)
+    mc = torch.cat([msg_cv, zero_row], dim=0)
+    gathered = mc.index_select(0, tables["cpos_of_vslot"]).view(n_var, d_max, S)
+    total = llr_var[:, None] + gathered.sum(dim=1)
+    back = total.index_select(0, tables["var_of_cpos"]) - msg_cv
+    new_vc = torch.where(pad_c, bp_cuda.BIG, back)
+    if damping:
+        new_vc = (1.0 - damping) * new_vc + damping * msg_vc
+    return new_vc, total
+
+
+def _kernel_v2c(msg_cv, llr_var, tables, msg_vc, damping):
+    """`csrc/bp_v2c.cu`'s arithmetic written out in float32: the sum in
+    slot order over each variable's edges, every later operation rounded
+    once to the storage dtype. (new messages, beliefs)."""
+    dt = msg_cv.dtype
+    r = lambda x: x.to(dt).float()                           # noqa: E731
+    Ec, S = msg_cv.shape
+    n_var, d = llr_var.shape[0], tables["d_max"]
+    cpos = tables["cpos_of_vslot"].view(n_var, d)
+    m = msg_cv.float()
+    acc = torch.zeros((n_var, S))
+    for j in range(d):
+        live = cpos[:, j] < Ec
+        acc[live] = acc[live] + m[cpos[live, j]]
+    total = r(llr_var.float()[:, None] + r(acc))
+    out = msg_vc.float().clone()
+    for j in range(d):
+        live = cpos[:, j] < Ec
+        p = cpos[live, j]
+        new = r(total[live] - m[p])
+        if damping:
+            new = r(r(np.float32(1.0 - damping) * new) + r(np.float32(damping) * out[p]))
+        out[p] = new
+    return out.to(dt), total.to(dt)
+
+
+def _v2c_operands(tables, S, dt, seed=3, dyadic=False):
+    """K3-like messages (NaN in the check layout's padding slots, which no
+    one may read), previous messages (+big in the padding) and priors.
+    dyadic: the messages on the grid 1/16, where float32 sums of a few of
+    them are exact in any order."""
+    g = torch.Generator().manual_seed(seed)
+    Ec, pad = tables["Ec"], tables["pad_c"]
+    n_var = tables["cpos_of_vslot"].numel() // tables["d_max"]
+    msg_cv = 4 * torch.randn((Ec, S), generator=g)
+    if dyadic:
+        msg_cv = torch.round(16 * msg_cv) / 16
+    msg_cv[pad] = float("nan")
+    msg_cv[::5, ::7] = 0.0
+    msg_vc = 4 * torch.randn((Ec, S), generator=g)
+    msg_vc[pad] = bp_cuda.BIG
+    llr = 2 + 6 * torch.rand(n_var, generator=g)
+    return msg_cv.to(dt), llr.to(dt), msg_vc.to(dt)
+
+
+def _random_tables(n_chk=40, n_var=90, seed=4):
+    """Slot tables of a random Tanner graph with variable degrees 1 to 7,
+    some 8 (the kernel's wider degree tier), and every check used."""
+    rng = np.random.default_rng(seed)
+    chk, var = [], []
+    for v in range(n_var):
+        for c in rng.choice(n_chk, rng.integers(1, 8), replace=False):
+            chk.append(c)
+            var.append(v)
+    chk = np.concatenate([chk, np.arange(n_chk)])
+    var = np.concatenate([var, rng.integers(0, n_var, n_chk)])
+    return tl.build_slot_tables(chk.astype(np.int64), var.astype(np.int64),
+                                n_chk, n_var)
+
+
+@pytest.mark.parametrize("graph", ["bb", "random"])
+@pytest.mark.parametrize("damping", [0.0, 0.5, 0.3])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_v2c_twin_reproduces_the_inline_code_and_the_kernel_arithmetic(
+        bb, graph, damping, dt):
+    """On the small BB DEM (degrees 2 and 3) with generic messages, and on
+    a random graph of degrees up to 8 (the kernel's wider tier) with
+    messages on a dyadic grid: torch sums more than 3 float32 terms on the
+    CPU in another order than the kernel's slot order, so only there the
+    sums are made exact."""
+    tables = tl.slot_tables_on(bb["tables"] if graph == "bb" else _random_tables(),
+                               "cpu")
+    msg_cv, llr, msg_vc = _v2c_operands(tables, 37, TORCH_DT[dt],
+                                        dyadic=graph == "random")
+    new0, total0 = _inline_v2c(msg_cv, llr, tables, msg_vc, damping)
+    new1, total1 = _kernel_v2c(msg_cv, llr, tables, msg_vc, damping)
+    beliefs = bp_cuda.v2c(msg_cv, llr, tables)
+    vc = msg_vc.clone()
+    got = bp_cuda.v2c(msg_cv, llr, tables, vc, damping)
+    assert got is vc and got.dtype == TORCH_DT[dt]
+    assert beliefs.shape == (llr.shape[0], 37) and beliefs.dtype == TORCH_DT[dt]
+    assert torch.equal(beliefs, total0) and torch.equal(beliefs, total1)
+    live = ~tables["pad_c"]
+    assert torch.equal(got[live], new1[live])
+    if damping in (0.0, 0.5):
+        # the inline blend keeps the padding at exactly +big (and the kernel
+        # never writes it) where (1 - g) * big + g * big rounds back to big
+        assert torch.equal(got, new0)
+        assert torch.equal(got[~live], msg_vc[~live])
+    else:
+        assert torch.equal(got[live], new0[live])
+
+
+def test_bp_slots_takes_v2c_each_iteration_and_the_beliefs_pass(bb, monkeypatch):
+    calls = []
+    real = bp_cuda.v2c
+
+    def spy(msg_cv, llr_var, tables, msg_vc=None, damping=0.0):
+        calls.append((msg_vc is None, damping))
+        return real(msg_cv, llr_var, tables, msg_vc, damping)
+
+    monkeypatch.setattr(bp_cuda, "v2c", spy)
+    tl._bp_slots(torch.from_numpy(bb["dets"][:8]), torch.from_numpy(bb["llr"]),
+                 bb["tables"], bb["dec"].n_det, bb["dec"].n_mech, 4, 0.75,
+                 dtype=torch.bfloat16, damping=0.5)
+    assert calls == [(False, 0.5)] * 4 + [(True, 0.0)]
+
+
+def test_v2c_rejects_bad_operands(bb):
+    tables = tl.slot_tables_on(bb["tables"], "cpu")
+    msg_cv, llr, msg_vc = _v2c_operands(tables, 8, torch.float32)
+    with pytest.raises(ValueError):                     # not (Ec, S)
+        bp_cuda.v2c(msg_cv[:-1], llr, tables, msg_vc)
+    with pytest.raises(ValueError):                     # priors of another graph
+        bp_cuda.v2c(msg_cv, llr[:-1], tables, msg_vc)
+    with pytest.raises(TypeError):                      # mixed dtypes
+        bp_cuda.v2c(msg_cv, llr.to(torch.bfloat16), tables, msg_vc)
+    with pytest.raises(TypeError):
+        bp_cuda.v2c(msg_cv, llr, tables, msg_vc.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv, llr, tables, msg_vc[:, :4])
+    with pytest.raises(ValueError):                     # damping needs messages
+        bp_cuda.v2c(msg_cv, llr, tables, None, 0.5)
+    with pytest.raises(ValueError):                     # d_max above the limit
+        bp_cuda.v2c(msg_cv, llr, dict(tables, d_max=bp_cuda.MAX_DEGREE + 1), msg_vc)
+    with pytest.raises(ValueError):                     # tables elsewhere
+        bp_cuda.v2c(msg_cv, llr, tl.slot_tables_on(bb["tables"], "meta"), msg_vc)
+    meta = tl.slot_tables_on(bb["tables"], "meta")
+    before = bp_cuda.v2c.launches
+    with pytest.raises(ValueError):                     # no kernel, no twin there
+        bp_cuda.v2c(msg_cv.to("meta"), llr.to("meta"), meta, msg_vc.to("meta"))
+    assert bp_cuda.v2c.launches == before

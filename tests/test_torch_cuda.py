@@ -9,7 +9,10 @@ Tolerances: float32 1e-4 and complex64 1e-5 relative to max|twin| (the
 kernels and the library products sum in different orders; K1's float32
 product is the 3xTF32 split on the tensor cores); float64 and
 complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
-at float32 and bfloat16 (one rounding of the same exact product). The
+at float32 and bfloat16 (one rounding of the same exact product); the v2c
+kernel rounds where its twin's torch ops round, so it may differ only by the
+order of a float32 sum of <= d_max terms: hard decisions equal, beliefs
+within one storage ulp, each reported with how many differ. The
 surface-code matchers (plain torch ops, no kernel of their own) are
 bit-identical on the card and on the CPU; the fast sampler's detector rates
 lie within 5 binomial sigma of the DEM's analytic rates. The architecture
@@ -427,6 +430,203 @@ def test_c2v_kernel_rejects_unsupported(cuda):
     assert bp_cuda.c2v.launches == before
 
 
+@pytest.fixture(scope="module")
+def bb_graphs():
+    """The gross code's DEM (3 rounds) and the small BB code's (2 rounds),
+    both at p = 1e-3: circuit, slot tables (numpy) and priors (float32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    from noisyquantumsimulator_tpu_torch.qec.dem_decoder import dem_arrays
+    out = {}
+    for name, code, rounds in (("gross", ldpc.gross_code(), 3),
+                               ("small", ldpc.small_bb_code(), 2)):
+        c = ldpc.bb_memory_circuit(*code, rounds, 1e-3)
+        H, _, probs = dem_arrays(c)
+        chk, var = np.nonzero(H)
+        tables = ldpc.build_slot_tables(chk.astype(np.int64), var.astype(np.int64),
+                                        *H.shape)
+        out[name] = (c, tables, np.log((1.0 - probs) / probs).astype(np.float32))
+    # a random Tanner graph with variable degrees up to 8: the kernel's wider
+    # degree tier
+    rng = np.random.default_rng(4)
+    n_chk, n_var = 40, 90
+    var = np.repeat(np.arange(n_var), rng.integers(1, 9, n_var))
+    chk = np.concatenate([rng.choice(n_chk, k, replace=False)
+                          for k in np.bincount(var, minlength=n_var)])
+    out["random"] = (None, ldpc.build_slot_tables(chk, var, n_chk, n_var), None)
+    return out
+
+
+def _ulps(x, dtype):
+    """The spacing of `dtype` at each |x| (x float32)."""
+    frac_bits = {torch.bfloat16: 7, torch.float32: 23}[dtype]
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 1 - frac_bits)
+
+
+def _v2c_card_operands(tables, S, dtype, device, seed=0, dyadic=False):
+    """K3-like messages (NaN in the check layout's padding, which no one may
+    read), the previous messages (+big in the padding), priors. dyadic: the
+    messages on the grid 1/16, where float32 sums of a few of them are exact
+    in any order."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    Ec, pad = tables["Ec"], tables["pad_c"]
+    n_var = tables["cpos_of_vslot"].numel() // tables["d_max"]
+    msg_cv = 4 * torch.randn((Ec, S), generator=g, device=device)
+    if dyadic:
+        msg_cv = torch.round(16 * msg_cv) / 16
+    msg_cv[pad] = float("nan")
+    msg_cv[::5, ::7] = 0.0
+    msg_vc = 4 * torch.randn((Ec, S), generator=g, device=device)
+    msg_vc[pad] = bp_cuda.BIG
+    llr = 2 + 6 * torch.rand(n_var, generator=g, device=device)
+    return msg_cv.to(dtype), llr.to(dtype), msg_vc.to(dtype)
+
+
+@pytest.mark.parametrize("graph,dtype,damping,S", [
+    ("gross", torch.bfloat16, 0.0, 65536),     # the fast tier's shape
+    ("gross", torch.float32, 0.5, 512),        # the retry tier's shape
+    ("gross", torch.bfloat16, 0.5, 1003),
+    ("gross", torch.float32, 0.0, 1003),
+    ("small", torch.bfloat16, 0.0, 777),
+    ("small", torch.bfloat16, 0.5, 777),
+    ("small", torch.float32, 0.0, 129),
+    ("small", torch.float32, 0.5, 129),
+    ("random", torch.bfloat16, 0.5, 1003),
+    ("random", torch.float32, 0.0, 129),
+])
+def test_v2c_kernel_matches_twin(cuda, bb_graphs, graph, dtype, damping, S):
+    """Messages and beliefs against the twin on the same card; degree-2
+    variables carry the sentinel slot, S is ragged but at 65536, and the
+    random graph takes the kernel's wider degree tier. The twin's torch sum
+    adds more than 3 float32 terms in another order than the kernel's slot
+    order (beliefs then differ by several ulps, not by one), so the random
+    graph's messages lie on a grid where every order sums exactly."""
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    _, tables_np, _ = bb_graphs[graph]
+    tables = ldpc.slot_tables_on(tables_np, cuda)
+    msg_cv, llr, msg_vc = _v2c_card_operands(tables, S, dtype, cuda,
+                                             dyadic=graph == "random")
+    before = bp_cuda.v2c.launches
+    bel = bp_cuda.v2c(msg_cv, llr, tables)
+    got = bp_cuda.v2c(msg_cv, llr, tables, msg_vc.clone(), damping)
+    assert bp_cuda.v2c.launches == before + 2
+    bel_ref = bp_cuda._v2c_plain(msg_cv, llr, tables)
+    ref = bp_cuda._v2c_plain(msg_cv, llr, tables, msg_vc.clone(), damping)
+    torch.cuda.synchronize()
+    assert bel.shape == (llr.shape[0], S) and bel.dtype == dtype
+    assert got.shape == msg_vc.shape and got.dtype == dtype
+    pad = tables["pad_c"]
+    assert torch.equal(got[pad], msg_vc[pad]), "padding slots written"
+    assert bool(torch.isfinite(bel.float()).all() and torch.isfinite(got.float()).all())
+    n_bel = int((bel != bel_ref).sum())
+    n_msg = int((got != ref).sum())
+    print(f"v2c {graph} {dtype} damping {damping} S {S}: beliefs differ at "
+          f"{n_bel} of {bel.numel()}, messages at {n_msg} of {int((~pad).sum()) * S}")
+    assert torch.equal(bel < 0, bel_ref < 0)
+    d_bel = (bel.float() - bel_ref.float()).abs()
+    assert bool((d_bel <= _ulps(bel_ref.float(), dtype)).all())
+    # a message is total - c2v: where the variable's total moved by one ulp
+    # the message moves by at most one ulp of the total, plus its own rounding
+    tot = bel_ref.float().index_select(0, tables["var_of_cpos"])[~pad]
+    d_msg = (got.float() - ref.float()).abs()[~pad]
+    assert bool((d_msg <= 2 * _ulps(tot, dtype)).all())
+    if n_bel == 0:
+        assert n_msg == 0
+
+
+@pytest.mark.parametrize("damping", [0.0, 0.5])
+def test_v2c_kernel_generic_sums_within_order_bound(cuda, bb_graphs, damping):
+    """The random graph's wider degree tier on generic float32 messages,
+    where the twin's torch sum of up to 8 terms runs in another order than
+    the kernel's slot order. Each float32 sum of d terms lies within
+    (d - 1) * u * A of the exact one (u = 2^-24, A = |prior| + the sum of
+    the variable's |messages|), so the two beliefs differ by at most
+    2 * d_max ulps of A, rounding included; a message, total - c2v rounded
+    and then blended, by 2 * d_max + 2 ulps of A + |old message|."""
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    tables = ldpc.slot_tables_on(bb_graphs["random"][1], cuda)
+    d_max, S = tables["d_max"], 1003
+    msg_cv, llr, msg_vc = _v2c_card_operands(tables, S, torch.float32, cuda, seed=3)
+    bel = bp_cuda.v2c(msg_cv, llr, tables)
+    got = bp_cuda.v2c(msg_cv, llr, tables, msg_vc.clone(), damping)
+    bel_ref = bp_cuda._v2c_plain(msg_cv, llr, tables)
+    ref = bp_cuda._v2c_plain(msg_cv, llr, tables, msg_vc.clone(), damping)
+    A = bp_cuda._v2c_plain(msg_cv.abs().double(), llr.abs().double(), tables).float()
+    torch.cuda.synchronize()
+    pad = tables["pad_c"]
+    assert torch.equal(got[pad], msg_vc[pad]), "padding slots written"
+    d_bel = (bel - bel_ref).abs()
+    bound_bel = 2 * d_max * _ulps(A, torch.float32)
+    A_msg = A.index_select(0, tables["var_of_cpos"]) + msg_vc.abs()
+    d_msg = (got - ref).abs()[~pad]
+    bound_msg = ((2 * d_max + 2) * _ulps(A_msg, torch.float32))[~pad]
+    print(f"v2c random float32 damping {damping}: beliefs differ at "
+          f"{int((d_bel > 0).sum())} of {bel.numel()} (at most "
+          f"{float((d_bel / _ulps(A, torch.float32)).max()):.2f} ulps of A), messages "
+          f"at {int((d_msg > 0).sum())} of {d_msg.numel()}")
+    assert bool((d_bel <= bound_bel).all())
+    assert bool((d_msg <= bound_msg).all())
+    sure = bel_ref.abs() > bound_bel
+    assert torch.equal((bel < 0)[sure], (bel_ref < 0)[sure])
+
+
+@pytest.mark.parametrize("tier", ["fast", "retry"])
+def test_bp_slots_cuda_matches_cpu(cuda, bb_graphs, tier):
+    """`_bp_slots` on the card against the same on the CPU (the twins), at
+    the gross code's tiers: 6 bfloat16 iterations, or 90 damped float32
+    ones; K3 and the v2c kernel each launch n_iters + 1 times."""
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    circuit, tables_np, llr = bb_graphs["gross"]
+    n_chk = circuit.n_detectors
+    n_var = llr.shape[0]
+    S, kw = ((2048, dict(n_iters=6, dtype=torch.bfloat16)) if tier == "fast"
+             else (512, dict(n_iters=90, damping=0.5)))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(17)
+    syn = build_fast_sampler(circuit, S, cuda)(gen)["detectors"].float()
+    llr_t = torch.as_tensor(llr)
+    v0, c0 = bp_cuda.v2c.launches, bp_cuda.c2v.launches
+    hg, bg = ldpc._bp_slots(syn, llr_t.to(cuda), ldpc.slot_tables_on(tables_np, cuda),
+                            n_chk, n_var, scale=0.75, **kw)
+    assert bp_cuda.v2c.launches == v0 + kw["n_iters"] + 1
+    assert bp_cuda.c2v.launches == c0 + kw["n_iters"] + 1
+    hc, bc = ldpc._bp_slots(syn.cpu(), llr_t, tables_np, n_chk, n_var, scale=0.75, **kw)
+    hg, bg = hg.cpu(), bg.cpu()
+    dt = kw.get("dtype", torch.float32)
+    n_bel = int((bg != bc).sum())
+    print(f"_bp_slots {tier}: beliefs differ at {n_bel} of {bc.numel()}, hard "
+          f"decisions at {int((hg != hc).sum())}")
+    assert torch.equal(hg, hc)
+    assert bool(((bg - bc).abs() <= _ulps(bc, dt)).all())
+
+
+def test_v2c_kernel_rejects_unsupported(cuda, bb_graphs):
+    from noisyquantumsimulator_tpu_torch.qec import ldpc
+    tables = ldpc.slot_tables_on(bb_graphs["small"][1], cuda)
+    msg_cv, llr, msg_vc = _v2c_card_operands(tables, 64, torch.float32, cuda)
+    before = bp_cuda.v2c.launches
+    with pytest.raises(TypeError):
+        bp_cuda.v2c(msg_cv.half(), llr.half(), tables, msg_vc.half())
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv.t().contiguous().t(), llr, tables, msg_vc)
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv, llr, tables, msg_vc.t().contiguous().t())
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv, llr, tables, msg_cv)
+    with pytest.raises(TypeError):
+        bp_cuda.v2c(msg_cv, llr, dict(tables, cpos_of_vslot=tables["cpos_of_vslot"].int()),
+                    msg_vc)
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv, llr, dict(tables, d_max=bp_cuda.MAX_DEGREE + 1), msg_vc)
+    with pytest.raises(ValueError):
+        bp_cuda.v2c(msg_cv, llr.cpu(), tables, msg_vc)
+    assert bp_cuda.v2c.launches == before
+
+
 def test_dem_decoder_cuda_matches_cpu(cuda):
     """The tiered decoder at a float32 fast tier gives the same bad flags
     and, on converged shots, the same predictions on the card as on the
@@ -444,9 +644,10 @@ def test_dem_decoder_cuda_matches_cpu(cuda):
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
     dets = build_fast_sampler(c, 2048, cuda)(gen)["detectors"].float()
-    before = bp_cuda.c2v.launches
+    before, before_v = bp_cuda.c2v.launches, bp_cuda.v2c.launches
     pg, bg, _ = dg._full(dets)
     assert bp_cuda.c2v.launches == before + 7 + 38
+    assert bp_cuda.v2c.launches == before_v + 7 + 38
     pc, bc, _ = dc._full(dets.cpu())
     assert torch.equal(bg.cpu(), bc)
     assert float((pg.cpu() == pc)[~bc].float().mean()) >= 0.999
