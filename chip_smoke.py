@@ -26,40 +26,40 @@ port's studies package (the gate, QEC and platform studies).
 
 Run from the root of the repository on a machine with an NVIDIA GPU (built
 for sm_90a: H100 / H200), nvcc under $CUDA_HOME or /usr/local/cuda, and
-PyTorch built for CUDA. It imports nothing of JAX. Phases, one status line
-each; any failure raises and the script exits non-zero:
+PyTorch built for CUDA. It imports nothing of JAX. It holds each kernel's
+wrapper against its twin at the main path's shapes, holds what no card test
+of tests/test_torch_cuda.py holds, and times each kernel alone. The
+benchmark's cells (nqs_bench/) time the entries end to end; phase 19's
+records time the same entries once more through the bench.py CLI, as a
+check of that CLI, and phases 1-10 time none. Phases, one status line each
+(3 and 4, K1 and K2 against their twins at other shapes, are the card
+tests'); any failure raises and the script exits non-zero:
 
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
               ptxas registers and spills of K1, K2, the population scan and
               the min-sum v2c kernel (no spills allowed);
               the time of one empty kernel launch
-  3. K1       the phase-scan kernel vs its plain twin at the bench layout
-              (n = 81, S = 5, 300 steps, B = 1024; n = 256, B = 256), f32/f64
-  4. K2       the masked-squaring kernel vs its twin on the main path's
-              squaring inputs: (1, 81), (300, 81) and (1, 256), mixed s
   5. gate     simulate_cz_gate(SmoothJPSimulationInputs(), device="cuda") at
               complex64 and complex128 vs a host complex128 scipy reference
   6. sweep    the bench sweep (bench_gate.build_workload) at dim 3, batch
-              32768, and dim 4, batch 8192: sims/s and the kernels' launch
-              counts in that run; a torch.profiler window of 3 steps per dim
-              (device idle share, K1's share of device time); then K1 vs its
-              twin at the sweep's own shapes (f32, 1e-4 relative), each
+              32768, and dim 4, batch 8192: one step each, the fidelities'
+              holds and the kernels' launch counts in that run; then K1 and
+              K2 vs their twins at the sweep's own shapes (K1 f32, 1e-4
+              relative; K2's U_base squaring, complex64, 1e-5 relative), each
               kernel's time vs its twin's, K1's TFLOP/s and share of its
               bounds, 300 x torch.mm of the per-step product (context), and
               torch.linalg.matrix_power beside K2
-  7. K3       the min-sum c2v kernel vs its twin, bit-exact, at bf16 and f32
-              on (26, 288, 65536), (26, 288, 512) and (7, 13, 1000), inputs
-              with a padding slab, ties and exact zeros
+  7. K3       the library's slot and degree limits equal bp_cuda's
   8. bb       the BB-LDPC memory path (bench_bb.build_bb_workload): gross
               code [[144,12]], 3 rounds, p = 1e-3, 65,536 shots, one warm-up
-              rep and 3 timed reps queued before any sync: shots/s,
-              p_logical with its Wilson CI, the launch counts of K3 and of
-              the v2c kernel in that run (98 a rep each: 7 fast, 91 retry);
-              the card's tiered decode vs the CPU twin path on 4096 shots;
-              then K3's and the v2c kernel's times vs their twins' at the
-              two tiers' shapes, the v2c kernel's messages and beliefs
-              bit-exact to its twin's there
+              rep and 3 reps queued before any sync: p_logical with its
+              Wilson CI, the launch counts of K3 and of the v2c kernel in
+              that run (98 a rep each: 7 fast, 91 retry); the card's tiered
+              decode vs the CPU twin path on 4096 shots; then K3 and the
+              v2c kernel vs their twins at the two tiers' shapes ((26, 288,
+              65536) bf16 and (26, 288, 512) f32 for K3), both bit-exact,
+              and their times
   9. K2 batched  K2 vs its twin and torch.linalg.matrix_power at the shapes
               where it does real work (K2_BATCHED: optimizer populations,
               bang-bang segments, the per-segment engine at dim 3 and 4, the
@@ -69,7 +69,8 @@ each; any failure raises and the script exits non-zero:
  10. optimizer  the population objectives of optimize/engine.py at P = 1024:
               smooth JP (300 segments, float32 real core) and bang-bang (5
               segments, complex64): evaluations/s, K2 launches per call
-              (exactly one; no autograd graph recorded), a profiler window of 3 calls, 8 members against the complex128
+              (exactly one; no autograd graph recorded), a profiler window
+              of 3 bang-bang calls, 8 members against the complex128
               per-segment path; the population-scan kernel at the smooth-JP
               call's own operands ((1024, 81), S = 5, 300 steps, f32; one
               launch a call) against its twin, the batched-product loop:
@@ -235,14 +236,10 @@ from pathlib import Path
 
 import numpy as np
 
-SEED = 20261016
-# H100 SXM dense peaks (NVIDIA's data sheet, 700 W): FP32 outside the tensor
-# cores, FP64 and TF32 on them (cuBLAS runs 64-bit products on the FP64
-# tensor cores; a 3xTF32 product costs three), device memory.
-PEAK_FP32 = 67e12
-PEAK_FP64 = 67e12
-PEAK_TF32 = 495e12
-PEAK_BYTES = 3.35e12
+from tools.chip_common import (
+    PEAK_BYTES, PEAK_FP32, PEAK_FP64, PEAK_TF32, SEED, cuda_ms, gate_plan,
+    host_scan_inputs, population_near)
+
 K1_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/phase_scan.cu"
 K1_REPLACES = "noisyquantumsimulator_tpu/solver/scan_pallas.py:71"
 K2_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/masked_squaring.cu"
@@ -250,7 +247,6 @@ K2_REPLACES = "noisyquantumsimulator_tpu/ops/expm_pallas.py:35"
 PSCAN_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/population_scan.cu"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
-K3_SHAPES = ((26, 288, 65536), (26, 288, 512), (7, 13, 1000))
 V2C_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_v2c.cu"
 # the keys of the reference's bench.py records (main, main_bb), in its order;
 # the port's gate record adds power_limit after device
@@ -291,52 +287,14 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def _plan(dim, n_steps=300):
-    from noisyquantumsimulator_tpu_torch.core.configs import (
-        SmoothJPSimulationInputs)
-    from noisyquantumsimulator_tpu_torch.gate.simulate import plan_cz_gate
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        return plan_cz_gate(SmoothJPSimulationInputs(), hilbert_space_dim=dim,
-                            n_steps_smooth=n_steps)
-
-
-def _host_scan_inputs(plan):
-    """U_real, cq, phases, x0 in float64 numpy, built on the host with
-    scipy (independent of both kernels)."""
-    from scipy.linalg import expm as sexpm
-    from noisyquantumsimulator_tpu_torch.gate.simulate import plan_phase_frame
-    from noisyquantumsimulator_tpu_torch.solver.real_rep import build_real_rep
-    g = plan_phase_frame(plan)
-    D = plan.rho0s.shape[-1]
-    rep = build_real_rep(g, D)
-    W = rep.Wr + 1j * rep.Wi
-    Ub = sexpm((plan.L0 + plan.Cp + plan.Cm) * plan.schedule.dts[0])
-    U_real = (W @ Ub @ W.conj().T).real
-    x0 = (plan.rho0s.reshape(len(plan.rho0s), D * D) @ W.T).real
-    return U_real, rep.cq, np.asarray(plan.schedule.phases), x0, D, rep.P
-
-
-def _cuda_ms(fn, reps):
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _kernel_vs_plain_ms(kernel, plain, reps):
     """Time both in turns (plain, kernel, kernel, plain) after a warm-up;
     returns (kernel ms, plain ms), each the mean of its two turns."""
     kernel(), plain()
-    p1 = _cuda_ms(plain, reps)
-    k1 = _cuda_ms(kernel, reps)
-    k2 = _cuda_ms(kernel, reps)
-    p2 = _cuda_ms(plain, reps)
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -400,30 +358,6 @@ def phase_build():
         require(st == 0 and ld == 0, f"{name} spills")
 
 
-def phase_k1(rng):
-    import torch
-    from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
-        _evolve_real_phased_many_plain, evolve_real_phased_many_cuda)
-    for dim, B in ((3, 1024), (4, 256)):
-        U, cq, ph, x0, D, P = _host_scan_inputs(_plan(dim))
-        phases_bn = rng.uniform(0.9, 1.1, B)[:, None] * ph[None]
-        for dt, tol in ((torch.float32, 1e-4), (torch.float64, 1e-12)):
-            args = [torch.as_tensor(a, device="cuda").to(dt)
-                    for a in (U, cq, phases_bn, x0)]
-            got = evolve_real_phased_many_cuda(*args, D, P)
-            ref = _evolve_real_phased_many_plain(*args, D, P)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            require(bool(torch.isfinite(got).all()), "K1 output finite")
-            require(got.shape == (B, len(x0), D + 2 * P), "K1 output shape")
-            require(err <= tol * scale,
-                    f"K1 dim {dim} {dt}: max|d| {err:.3e} > {tol} * {scale:.3e}")
-            say("3 K1", f"dim {dim} B={B} S={len(x0)} n={D + 2 * P} 300 steps "
-                f"{dt}: max|kernel - twin| = {err:.3e} (max|ref| {scale:.3e}, "
-                f"tol {tol} relative)")
-
-
 def _squaring_inputs(plan, B, dtype, device):
     """The main path's squaring inputs: Taylor-16 of the scaled segment
     Liouvillians (B = 1: U_base's; B > 1: per-segment, with the segments
@@ -449,31 +383,6 @@ def _squaring_inputs(plan, B, dtype, device):
     return _taylor16(As, I).contiguous(), s, ms
 
 
-def phase_k2():
-    import torch
-    from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
-        _masked_squaring_plain, fused_masked_squaring)
-    errs = {}
-    for dim, B in ((3, 1), (3, 300), (4, 1)):
-        plan = _plan(dim)
-        for dt, tol in ((torch.complex64, 1e-5), (torch.complex128, 1e-12)):
-            R, s, ms = _squaring_inputs(plan, B, dt, "cuda")
-            got = fused_masked_squaring(R, s, ms)
-            ref = _masked_squaring_plain(R, s, ms)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            require(bool(torch.isfinite(torch.view_as_real(got)).all()),
-                    "K2 output finite")
-            require(err <= tol * scale,
-                    f"K2 ({B},{R.shape[-1]}) {dt}: {err:.3e} > {tol} * {scale:.3e}")
-            errs[(B, R.shape[-1], str(dt))] = err
-            say("4 K2", f"B={B} N={R.shape[-1]} {dt} max_squarings={ms} "
-                f"s in [{int(s.min())}, {int(s.max())}]: max|kernel - twin| = "
-                f"{err:.3e} (max|ref| {scale:.3e}, tol {tol} relative)")
-    return errs
-
-
 def _empty_launch_ms():
     """The time of one empty kernel launch (csrc/empty_launch.cu), from
     2000 launches back to back between two CUDA events; best of 3."""
@@ -485,7 +394,7 @@ def _empty_launch_ms():
     def run():
         _kernels.check(lib, lib.nqs_empty_launch(stream), "empty launch")
     run()
-    return min(_cuda_ms(run, 2000) for _ in range(3))
+    return min(cuda_ms(run, 2000) for _ in range(3))
 
 
 def _k2_bound_ms(R, s, max_squarings, launch_ms):
@@ -549,7 +458,7 @@ def phase_k2_batched(launch_ms):
             power = 2 ** min(int(skind), ms)
             lib_fn = lambda: torch.linalg.matrix_power(R, power)
             lib_fn()
-            lib_ms = min(_cuda_ms(lib_fn, reps), _cuda_ms(lib_fn, reps))
+            lib_ms = min(cuda_ms(lib_fn, reps), cuda_ms(lib_fn, reps))
         bound, which, terms = _k2_bound_ms(R, s, ms, launch_ms)
         rows[(B, N, dtname, ms, skind)] = dict(
             ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, err=err, terms=terms,
@@ -613,11 +522,13 @@ def _uhlmann(rho, sigma):
 
 
 def phase_gate():
+    """Phase 5: the default gate at complex64 and complex128 against the
+    host complex128 reference; returns each dtype's F."""
     import torch
     from noisyquantumsimulator_tpu_torch.core.configs import (
         SmoothJPSimulationInputs)
     from noisyquantumsimulator_tpu_torch.gate.simulate import simulate_cz_gate
-    ref = _host_reference_states(_plan(3))
+    ref = _host_reference_states(gate_plan(3))
     out = {}
     for dt, tol in ((torch.complex64, 1e-4), (torch.complex128, 1e-10)):
         with warnings.catch_warnings():
@@ -638,29 +549,12 @@ def phase_gate():
     return out
 
 
-def _profile_window(fn, tag, n_calls=3):
-    """utils.profiling.profile_window: (wall s per call, idle share, {kernel
-    name: device us}, trace path) over `n_calls` calls after a warm-up."""
-    from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
-    return profile_window(fn, tag, n_calls)[:4]
-
-
 def _share(by_name, *needles):
     """Share of the device time of `by_name` spent in kernels whose name
     holds one of `needles` (lower case)."""
     total = sum(by_name.values())
     return sum(t for name, t in by_name.items()
                if any(n in name.lower() for n in needles)) / total
-
-
-def _profile_steps(step, scales, dim, n_steps=3):
-    """torch.profiler over `n_steps` sweep steps: wall s per step, the
-    device's idle share and K1's share of device time."""
-    wall, idle, by_name, path = _profile_window(
-        lambda: step(scales), f"sweep_dim{dim}", n_steps)
-    if idle is None:
-        return wall, None, None, path
-    return wall, idle, _share(by_name, "phase_scan"), path
 
 
 def _k1_bounds_ms(B, S, n, n_seg):
@@ -673,7 +567,7 @@ def _k1_bounds_ms(B, S, n, n_seg):
             nbytes / PEAK_BYTES * 1e3)
 
 
-def phase_sweep(F_c64, errs_k2, launch_ms):
+def phase_sweep(F_c64, launch_ms):
     import torch
     from noisyquantumsimulator_tpu_torch import bench_gate
     from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
@@ -691,20 +585,12 @@ def phase_sweep(F_c64, errs_k2, launch_ms):
     # --- the main path, counted: only the sweep runs between reset and read
     fused_masked_squaring.launches = 0
     evolve_real_phased_many_cuda.launches = 0
-    rates, F_one, k1_launches = {}, None, {}
+    F_one, k1_launches = None, {}
     for dim, batch in sizes:
         k1_before = evolve_real_phased_many_cuda.launches
         step, scales, _ = work[dim]
         fids = step(scales)
         torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            fids = step(scales)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        med = statistics.median(times)
-        rates[dim] = batch / med
         require(fids.shape == (batch,) and bool(torch.isfinite(fids).all()),
                 "sweep fidelities finite, one per sim")
         require(0.5 < float(fids.min()) and float(fids.max()) <= 1.0 + 1e-4,
@@ -712,39 +598,25 @@ def phase_sweep(F_c64, errs_k2, launch_ms):
         if dim == 3:
             F_one = float(step(torch.ones(1, dtype=torch.float32, device="cuda")))
         k1_launches[dim] = evolve_real_phased_many_cuda.launches - k1_before
-        say("6 sweep", f"dim {dim} batch {batch} complex64: median {med * 1e3:.3f}"
-            f" ms of 5 -> {rates[dim]:.1f} sims/s (times ms "
-            f"{[round(t * 1e3, 3) for t in times]}); F range "
+        say("6 sweep", f"dim {dim} batch {batch} complex64: F range "
             f"[{float(fids.min()):.6f}, {float(fids.max()):.6f}]")
     launches = {"K1": evolve_real_phased_many_cuda.launches,
                 "K2": fused_masked_squaring.launches}
     say("6 sweep", f"launches in the sweep run: K1 {launches['K1']} (dim 3 "
         f"{k1_launches[3]}, dim 4 {k1_launches[4]}), K2 {launches['K2']}")
-    require(launches["K1"] == 13, "K1 launched once per sweep step (13)")
+    require(launches["K1"] == 3, "K1 launched once per sweep step (3)")
     require(launches["K2"] > 0, "K2 launched")
     require(abs(F_one - F_c64) <= 1e-6,
             f"sweep F at scale 1.0 ({F_one:.9f}) = phase 5 F ({F_c64:.9f})")
     say("6 sweep", f"F at scale 1.0 = {F_one:.9f} (phase 5 complex64: "
         f"{F_c64:.9f})")
 
-    # --- traced window (not counted)
-    for dim, batch in sizes:
-        step, scales, _ = work[dim]
-        wall, idle, k1_share, path = _profile_steps(step, scales, dim)
-        if idle is None:
-            say("6 sweep", f"dim {dim} profiler window: no device events in "
-                f"{path}; idle share not measured")
-        else:
-            say("6 sweep", f"dim {dim} profiler window, 3 steps: wall "
-                f"{wall * 1e3:.3f} ms/step, device idle share {idle:.4f}, K1 "
-                f"{k1_share * 100:.2f}% of device time (trace {path})")
-
     # --- kernel vs twin at the sweep's own shapes: parity, then times (not
     # counted)
-    timing, bounds, library, errs_k1 = {}, {}, {}, {}
+    timing, bounds, library, errs_k1, errs_k2 = {}, {}, {}, {}, {}
     for dim, batch in sizes:
         plan = work[dim][2]
-        U, cq, ph, x0, D, P = _host_scan_inputs(plan)
+        U, cq, ph, x0, D, P = host_scan_inputs(plan)
         S, n = x0.shape
         scales = work[dim][1]
         args = [torch.as_tensor(a, device="cuda").to(torch.float32)
@@ -784,13 +656,24 @@ def phase_sweep(F_c64, errs_k2, launch_ms):
             f"{tc_ms:.3f} ms (bytes bound {byte_ms:.4f} ms)")
         X = torch.randn(batch * S, n, device="cuda")
         UT = args[0].T.contiguous()
-        mm_ms = _cuda_ms(lambda: [torch.mm(X, UT) for _ in range(300)], 1)
-        mm_ms = min(mm_ms, _cuda_ms(lambda: [torch.mm(X, UT) for _ in range(300)], 1))
+        mm_ms = cuda_ms(lambda: [torch.mm(X, UT) for _ in range(300)], 1)
+        mm_ms = min(mm_ms, cuda_ms(lambda: [torch.mm(X, UT) for _ in range(300)], 1))
         say("6 sweep", f"context: 300 x torch.mm ({batch * S}, {n}) x ({n}, {n}) "
             f"f32 (TF32 off): {mm_ms:.3f} ms")
         del X
 
         R, s, ms = _squaring_inputs(plan, 1, torch.complex64, "cuda")
+        got = fused_masked_squaring(R, s, ms)
+        ref = _masked_squaring_plain(R, s, ms)
+        torch.cuda.synchronize()
+        errs_k2[dim] = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        require(bool(torch.isfinite(torch.view_as_real(got)).all()),
+                f"K2 dim {dim} output finite")
+        require(errs_k2[dim] <= 1e-5 * scale,
+                f"K2 dim {dim} (1, {R.shape[-1]}) complex64: max|d| "
+                f"{errs_k2[dim]:.3e} > 1e-5 * {scale:.3e}")
+        del ref
         k_ms, p_ms = _kernel_vs_plain_ms(
             lambda: fused_masked_squaring(R, s, ms),
             lambda: _masked_squaring_plain(R, s, ms), reps=50)
@@ -803,11 +686,12 @@ def phase_sweep(F_c64, errs_k2, launch_ms):
         power = 2 ** int(s[0].clamp(max=ms))
         lib_fn = lambda: torch.linalg.matrix_power(R, power)
         lib_fn()
-        lib_ms = min(_cuda_ms(lib_fn, 50), _cuda_ms(lib_fn, 50))
-        lib_err = float((lib_fn() - fused_masked_squaring(R, s, ms)).abs().max())
+        lib_ms = min(cuda_ms(lib_fn, 50), cuda_ms(lib_fn, 50))
+        lib_err = float((lib_fn() - got).abs().max())
         library[("K2", dim)] = lib_ms
         say("6 sweep", f"K2 dim {dim} (B=1, N={N}, {ms} trips, {s_data} "
-            f"squarings, complex64): kernel {k_ms:.4f} ms, plain twin "
+            f"squarings, complex64): max|kernel - twin| = {errs_k2[dim]:.3e}; "
+            f"kernel {k_ms:.4f} ms, plain twin "
             f"{p_ms:.4f} ms, torch.linalg.matrix_power(R, {power}) {lib_ms:.4f} "
             f"ms (max|diff| {lib_err:.3e}); bound {bounds[('K2', dim)][0]:.6f} ms "
             f"({bounds[('K2', dim)][1]}); one empty launch takes "
@@ -829,7 +713,7 @@ def phase_sweep(F_c64, errs_k2, launch_ms):
     kernels.append(
         {"name": "K2 masked_squaring", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": launches["K2"],
-         "max_abs_err": errs_k2[(1, 81, "torch.complex64")],
+         "max_abs_err": errs_k2[3],
          "ms": timing[("K2", 3)][0], "plain_ms": timing[("K2", 3)][1],
          "bound_ms": bounds[("K2", 3)][0], "bound_by": bounds[("K2", 3)][1],
          "library_ms": library[("K2", 3)],
@@ -857,7 +741,8 @@ def _c2v_inputs(rng, w, n_chk, S):
 
 
 def phase_k3():
-    import torch
+    """Phase 7: the library's slot and degree limits equal the wrappers'
+    (K3 against its twin is test_c2v_kernel_bit_exact_vs_twin's)."""
     from noisyquantumsimulator_tpu_torch import _kernels
     from noisyquantumsimulator_tpu_torch.qec import bp_cuda
     lib = _kernels.load()
@@ -865,35 +750,11 @@ def phase_k3():
             "K3 slot limit of the library = bp_cuda.MAX_SLOTS")
     require(lib.nqs_bp_v2c_max_degree() == bp_cuda.MAX_DEGREE,
             "v2c degree limit of the library = bp_cuda.MAX_DEGREE")
-    rng = np.random.default_rng(SEED + 3)
-    errs = {}
-    for shape in K3_SHAPES:
-        m, sgn = _c2v_inputs(rng, *shape)
-        m32 = torch.as_tensor(m, device="cuda")
-        s32 = torch.as_tensor(sgn, device="cuda")
-        del m
-        for dt in (torch.bfloat16, torch.float32):
-            msg, ss = m32.to(dt), s32.to(dt)
-            before = bp_cuda.c2v.launches
-            got = bp_cuda.c2v(msg, ss, 0.75)
-            require(bp_cuda.c2v.launches == before + 1, "K3 launch counted")
-            ref = bp_cuda._c2v_plain(msg, ss, 0.75)
-            torch.cuda.synchronize()
-            require(got.shape == msg.shape and got.dtype == dt, "K3 output shape")
-            require(bool(torch.isfinite(got.float()).all()), "K3 output finite")
-            err = float((got.float() - ref.float()).abs().max())
-            require(err == 0.0, f"K3 {shape} {dt}: max|kernel - twin| = {err:.3e}"
-                    " (must be bit-exact)")
-            errs[(shape, str(dt))] = err
-            say("7 K3", f"{shape} {dt}: max|kernel - twin| = {err} (bit-exact "
-                f"required); padding, ties and zeros in the input")
-            del msg, ss, got, ref
-        del m32, s32
-        torch.cuda.empty_cache()
-    return errs
+    say("7 K3", f"library limits: K3 {bp_cuda.MAX_SLOTS} slots, v2c degree "
+        f"{bp_cuda.MAX_DEGREE}, as bp_cuda's")
 
 
-def phase_bb(errs_k3):
+def phase_bb():
     import torch
     from noisyquantumsimulator_tpu_torch import bench_bb
     from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native
@@ -924,9 +785,8 @@ def phase_bb(errs_k3):
     w.step(gen(SEED))
     torch.cuda.synchronize()
 
-    # --- the main path, counted: only the timed reps run between reset and read
+    # --- the main path, counted: only the reps run between reset and read
     bp_cuda.c2v.launches = bp_cuda.v2c.launches = 0
-    t0 = time.perf_counter()
     fails = bad = 0
     # queue every rep before syncing any, so host OSD of rep r overlaps
     # the device work of rep r + 1
@@ -936,17 +796,14 @@ def phase_bb(errs_k3):
         fails += int(f) + w.osd_host(nb, dets_r, bel_r, obs_r)
         bad += nb
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches, v2c_launches = bp_cuda.c2v.launches, bp_cuda.v2c.launches
     n_tot = shots * reps
-    rate = n_tot / wall
     p_l = fails / n_tot
     lo, hi = wilson_ci(fails, n_tot)
-    say("8 bb", f"{reps} reps x {shots} shots in {wall:.4f} s -> {rate:.1f} "
-        f"shots/s; e2e_n_errors = {fails}, p_logical = {p_l:.3e} (95% Wilson "
-        f"CI [{lo:.3e}, {hi:.3e}]); non-converged fraction {bad / n_tot:.4e} "
-        f"({bad} OSD residue rows, cap {w.cap} per rep); launches in the timed "
-        f"reps: K3 {launches}, v2c {v2c_launches}")
+    say("8 bb", f"{reps} reps x {shots} shots: e2e_n_errors = {fails}, "
+        f"p_logical = {p_l:.3e} (95% Wilson CI [{lo:.3e}, {hi:.3e}]); "
+        f"non-converged fraction {bad / n_tot:.4e} ({bad} OSD residue rows, cap "
+        f"{w.cap} per rep); launches in the reps: K3 {launches}, v2c {v2c_launches}")
     per_rep = (w.fast_iters + 1) + (dec.retry_iters + 1)
     require(launches == v2c_launches == per_rep * reps,
             f"K3 and v2c launch {per_rep} times a rep (7 fast + 91 retry)")
@@ -972,7 +829,7 @@ def phase_bb(errs_k3):
     require(torch.equal(bg, bc), "bad flags of the card and the CPU twin agree")
     require(agree >= 0.999, f"predictions agree on {agree:.6f} >= 0.999")
 
-    # --- K3 vs twin times at the path's shapes (not counted)
+    # --- K3 vs twin at the path's shapes, bit-exact, then times (not counted)
     rng = np.random.default_rng(SEED + 8)
     timing = {}
     for shape, dt, reps_t in (((26, 288, 65536), torch.bfloat16, 20),
@@ -981,19 +838,30 @@ def phase_bb(errs_k3):
         msg = torch.as_tensor(m, device="cuda").to(dt)
         ss = torch.as_tensor(sgn, device="cuda").to(dt)
         del m
+        got = bp_cuda.c2v(msg, ss, 0.75)
+        require(got.shape == msg.shape and got.dtype == dt
+                and bool(torch.isfinite(got.float()).all()),
+                f"K3 {shape} {dt} output finite, shape and dtype")
+        err = float((got.float()
+                     - bp_cuda._c2v_plain(msg, ss, 0.75).float()).abs().max())
+        require(err == 0.0, f"K3 {shape} {dt}: max|kernel - twin| = {err:.3e}"
+                " (must be bit-exact)")
+        del got
         k_ms, p_ms = _kernel_vs_plain_ms(
             lambda: bp_cuda.c2v(msg, ss, 0.75),
             lambda: bp_cuda._c2v_plain(msg, ss, 0.75), reps=reps_t)
         nbytes = 2 * msg.numel() * msg.element_size() + ss.numel() * ss.element_size()
-        timing[shape] = (k_ms, p_ms, nbytes / PEAK_BYTES * 1e3)
-        say("8 bb", f"K3 {shape} {dt}: kernel {k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f}"
-            f" GB/s of {nbytes / 1e6:.1f} MB moved), plain twin {p_ms:.4f} ms")
+        timing[shape] = (k_ms, p_ms, nbytes / PEAK_BYTES * 1e3, err)
+        say("8 bb", f"K3 {shape} {dt}: max|kernel - twin| = {err} (bit-exact "
+            f"required); kernel "
+            f"{k_ms:.4f} ms ({nbytes / k_ms / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} "
+            f"MB moved), plain twin {p_ms:.4f} ms")
         del msg, ss
         torch.cuda.empty_cache()
     shape = (26, 288, 65536)
     k3_row = {"name": "K3 bp_c2v", "route": "cuda", "source": K3_SOURCE,
               "replaces": K3_REPLACES, "launches": launches,
-              "max_abs_err": errs_k3[(shape, "torch.bfloat16")],
+              "max_abs_err": timing[shape][3],
               "ms": timing[shape][0], "plain_ms": timing[shape][1],
               "bound_ms": timing[shape][2], "bound_by": "bytes",
               "library_ms": None,
@@ -1063,20 +931,10 @@ def phase_bb(errs_k3):
 _GEMM_NAMES = ("gemm", "cutlass", "xmma", "cublas")
 
 
-def _population_near(x0, bounds, P, spread, rng):
-    """P members: x0 itself, then x0 scaled coordinate-wise by factors in
-    1 +- spread, clipped to the bounds."""
-    b = np.asarray(bounds, float)
-    pop = x0[None] * (1.0 + spread * rng.uniform(-1.0, 1.0, (P, len(x0))))
-    pop[0] = x0
-    return np.clip(pop, b[:, 0], b[:, 1])
-
-
-def _drive_population(tag, obj, pop, what):
+def _drive_population(obj, pop, what):
     """Warm-up, then 5 timed calls of a population objective with K2's
-    count set to 0 just before and read just after; then a profiler window
-    of 3 calls (not counted). Returns (costs, metrics, K2 launches of the 5
-    calls, evaluations/s)."""
+    count set to 0 just before and read just after. Returns (costs,
+    metrics, K2 launches of the 5 calls, evaluations/s)."""
     import torch
     from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
     P = len(pop)
@@ -1102,19 +960,6 @@ def _drive_population(tag, obj, pop, what):
         f"{[round(t * 1e3, 3) for t in times]}); K2 launches per call "
         f"{launches / 5:g}; best cost {float(cost.min()):.4f}, members below the "
         f"1e6 floor {int((cost < 1e6).sum())}")
-    wall, idle, by_name, path = _profile_window(lambda: obj(pop_dev), tag)
-    if idle is None:
-        say("10 optimizer", f"{what} profiler window: no device events in "
-            f"{path}; idle share not measured")
-    else:
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-        say("10 optimizer", f"{what} profiler window, 3 calls: wall "
-            f"{wall * 1e3:.3f} ms/call, device idle share {idle:.4f}; of device "
-            f"time K2 {_share(by_name, 'masked_square') * 100:.2f}%, cuBLAS "
-            f"products (bmm of the scan or the ordered product, Taylor-16) "
-            f"{_share(by_name, *_GEMM_NAMES) * 100:.2f}%; {len(by_name)} kernels, "
-            f"longest: " + "; ".join(f"{n[:60]} {t / sum(by_name.values()) * 100:.1f}%"
-                                     for n, t in top) + f" (trace {path})")
     return cost, metrics, launches, P / med
 
 
@@ -1245,6 +1090,7 @@ def phase_optimizer(launch_ms=None):
     from noisyquantumsimulator_tpu_torch.optimize.apparatus import (
         ApparatusConstraints)
     from noisyquantumsimulator_tpu_torch.solver.propagator import evolve_rhos
+    from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
 
     P = 1024
     rng = np.random.default_rng(SEED + 10)
@@ -1261,12 +1107,12 @@ def phase_optimizer(launch_ms=None):
 
     # --- smooth JP, 300 segments, the float32 real core: one expm a member
     bounds, x0 = forward.get_smooth_jp_bounds_and_x0()
-    pop = _population_near(x0, bounds, P, 0.1, rng)
+    pop = population_near(x0, bounds, P, 0.1, rng)
     obj = engine.make_population_objective(problem, "smooth_jp")
     obj64 = engine.make_population_objective(problem, "smooth_jp",
                                              dtype=torch.complex128)
     cost, metrics, launches["smooth_jp"], rate_sj = _drive_population(
-        "optimizer_smooth_jp", obj, pop, "smooth_jp (300 segments, float32 real core)")
+        obj, pop, "smooth_jp (300 segments, float32 real core)")
     require(launches["smooth_jp"] == 5, "smooth_jp: one K2 launch per call")
     _hold_to_c128("smooth_jp", problem, "smooth_jp", {}, pop[:8], cost, metrics, obj64,
                   1e-4)
@@ -1274,21 +1120,36 @@ def phase_optimizer(launch_ms=None):
 
     # --- bang-bang, 5 segments, complex64: one expm a member and segment
     bounds, x0 = forward.get_jp_bangbang_bounds_and_x0(5)
-    pop = _population_near(x0, bounds, P, 0.02, rng)
+    pop = population_near(x0, bounds, P, 0.02, rng)
     kw = dict(n_segments=5)
     obj = engine.make_population_objective(problem, "jp_bangbang", **kw)
     obj64 = engine.make_population_objective(problem, "jp_bangbang",
                                              dtype=torch.complex128, **kw)
-    cost, metrics, launches["jp_bangbang"], rate_bb = _drive_population(
-        "optimizer_bangbang", obj, pop, "jp_bangbang (5 segments, complex64)")
+    what = "jp_bangbang (5 segments, complex64)"
+    cost, metrics, launches["jp_bangbang"], rate_bb = _drive_population(obj, pop, what)
     require(launches["jp_bangbang"] == 5, "jp_bangbang: one K2 launch per call")
+    pop_dev = torch.as_tensor(pop, device="cuda")
+    wall, idle, by_name, path, _ = profile_window(lambda: obj(pop_dev),
+                                                  "optimizer_bangbang")
+    if idle is None:
+        say("10 optimizer", f"{what} profiler window: no device events in "
+            f"{path}; idle share not measured")
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        say("10 optimizer", f"{what} profiler window, 3 calls: wall "
+            f"{wall * 1e3:.3f} ms/call, device idle share {idle:.4f}; of device "
+            f"time K2 {_share(by_name, 'masked_square') * 100:.2f}%, cuBLAS "
+            f"products (the ordered product, Pade-13) "
+            f"{_share(by_name, *_GEMM_NAMES) * 100:.2f}%; {len(by_name)} kernels, "
+            f"longest: " + "; ".join(f"{n[:60]} {t / sum(by_name.values()) * 100:.1f}%"
+                                     for n, t in top) + f" (trace {path})")
     # a bang-bang segment is a fifth of the gate: its expm is Pade-13 at its
     # single-precision theta, which takes 2-3 fewer squarings than Taylor-16 and
     # so holds the 1e-4 tier; the margin over 6 populations of 8
     dFs = [_hold_to_c128("jp_bangbang", problem, "jandura_pupillo", kw, pop[:8],
                          cost, metrics, obj64, 1e-4)]
     for k in range(1, 6):
-        pop8 = _population_near(x0, bounds, 8, 0.02,
+        pop8 = population_near(x0, bounds, 8, 0.02,
                                 np.random.default_rng(SEED + 10 + k))
         c8, m8 = obj(pop8)
         dFs.append(_hold_to_c128(f"jp_bangbang (population {k + 1} of 6)", problem,
@@ -1300,7 +1161,7 @@ def phase_optimizer(launch_ms=None):
 
     # --- the per-segment engine of one gate at dim 4 (300 x 256 x 256
     # complex64) against the phase-frame route of the same plan
-    plan = _plan(4)
+    plan = gate_plan(4)
     plan.device, plan.dtype = "cuda", torch.complex64
     put = lambda a: torch.as_tensor(np.asarray(a), device="cuda").to(torch.complex64)
     ms = plan_squaring_bound(plan)
@@ -1413,6 +1274,7 @@ def _time_calls(fn, what, tag, n=5):
     (median ms, K2 launches of the n calls, idle share or None)."""
     import torch
     from noisyquantumsimulator_tpu_torch.ops.expm_cuda import fused_masked_squaring
+    from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window
     fn()
     torch.cuda.synchronize()
     fused_masked_squaring.launches = 0
@@ -1425,7 +1287,7 @@ def _time_calls(fn, what, tag, n=5):
     launches = fused_masked_squaring.launches
     require(launches > 0, f"K2 launched by {what}")
     med = statistics.median(times) * 1e3
-    _, idle, by_name, path = _profile_window(fn, tag)
+    _, idle, by_name, path, _ = profile_window(fn, tag)
     idle_txt = "not measured (no device events)" if idle is None else f"{idle:.4f}"
     k2_txt = "" if by_name is None else (
         f", K2 {_share(by_name, 'masked_square') * 100:.2f}% of device time")
@@ -1552,7 +1414,7 @@ def phase_gradients(launch_ms):
                                      lambda: _masked_squaring_plain(R, s, 12), 50)
     lib_fn = lambda: torch.linalg.matrix_power(R, 2 ** int(s[0]))
     lib_fn()
-    lib_ms = min(_cuda_ms(lib_fn, 50), _cuda_ms(lib_fn, 50))
+    lib_ms = min(cuda_ms(lib_fn, 50), cuda_ms(lib_fn, 50))
     _, binds, terms = _k2_bound_ms(R, s, 12, launch_ms)
     by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
     say("11 gradients", f"K2 (1, 81) float32 at the value-and-grad expm, s = "
@@ -1665,7 +1527,7 @@ def phase_channel(launch_ms):
     if uniform:
         lib_fn = lambda: torch.linalg.matrix_power(R, 2 ** int(s[0]))
         lib_fn()
-        lib_ms = min(_cuda_ms(lib_fn, 20), _cuda_ms(lib_fn, 20))
+        lib_ms = min(cuda_ms(lib_fn, 20), cuda_ms(lib_fn, 20))
     _, binds, terms = _k2_bound_ms(R, s, 12, launch_ms)
     by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
     say("12 channel", f"K2 (300, 81) complex64, s in [{int(s.min())}, "
@@ -1772,7 +1634,7 @@ def _k2_at(R, s, ms, what, launch_ms, reps, phase="13 primitives", tol=1e-12):
     if bool((s == s[0]).all()):
         lib_fn = lambda: torch.linalg.matrix_power(R, 2 ** min(int(s[0]), ms))
         lib_fn()
-        lib_ms = min(_cuda_ms(lib_fn, reps), _cuda_ms(lib_fn, reps))
+        lib_ms = min(cuda_ms(lib_fn, reps), cuda_ms(lib_fn, reps))
     bound, binds, terms = _k2_bound_ms(R, s, ms, launch_ms)
     by = "operations" if terms["operations"] >= terms["bytes"] else "bytes"
     say(phase, f"K2 {what}, max_squarings {ms}, s in [{int(s.min())}, "
@@ -2667,7 +2529,7 @@ def phase_parallel(launch_ms):
                 warnings.simplefilter("ignore", UserWarning)
                 problem = engine.build_fixed_problem(app, app.make_full_noise())
             bounds, x0 = forward.get_smooth_jp_bounds_and_x0()
-            pop = _population_near(x0, bounds, P, 0.1, np.random.default_rng(SEED + 10))
+            pop = population_near(x0, bounds, P, 0.1, np.random.default_rng(SEED + 10))
             mesh = make_mesh(axis_names=("pop",))
             obj = make_population_objective_sharded(problem, "smooth_jp", mesh=mesh)
             obj1 = engine.make_population_objective(problem, "smooth_jp")
@@ -2933,7 +2795,7 @@ def phase_bench(launch_ms):
     # --- K2 at the complex128 tier's squaring inputs (not counted)
     out = []
     for dim in (3, 4):
-        plan = _plan(dim)
+        plan = gate_plan(dim)
         ms = plan_squaring_bound(plan) + 1
         A = torch.as_tensor((plan.L0 + plan.schedule.amps[0] * (plan.Cp + plan.Cm))
                             * plan.schedule.dts[0], device="cuda")[None]
@@ -3224,7 +3086,7 @@ def phase_studies(launch_ms):
                              f"phase 20: {tag} ({n} of its K2 calls at this shape)",
                              f"B={shape[0]} N={shape[1]} {dt}, max_squarings {ms}"))
     if runs["research_parameter_sweeps"]["K1"]:
-        U, cq, ph, x0, D, P = _host_scan_inputs(_plan(3))
+        U, cq, ph, x0, D, P = host_scan_inputs(gate_plan(3))
         args = [torch.as_tensor(v, device="cuda").to(torch.float64)
                 for v in (U, cq, ph[None], x0)]
         got = evolve_real_phased_many_cuda(*args, D, P)
@@ -3634,7 +3496,8 @@ def main(argv=None) -> int:
     say("2 build", f"one empty kernel launch: {launch_ms * 1e3:.3f} us (2000 "
         "back to back, best of 3): no kernel's bound is below it")
     if args.only == "bb":
-        phase_bb(phase_k3())
+        phase_k3()
+        phase_bb()
         return 0
     if args.only == "gradients":
         phase_gradients(launch_ms)
@@ -3672,12 +3535,10 @@ def main(argv=None) -> int:
         if args.only == "optimizer":
             phase_optimizer(launch_ms)
         return 0
-    phase_k1(np.random.default_rng(SEED))
-    errs_k2 = phase_k2()
     F = phase_gate()
-    kernels = phase_sweep(F["torch.complex64"], errs_k2, launch_ms)
-    errs_k3 = phase_k3()
-    kernels.extend(phase_bb(errs_k3))
+    kernels = phase_sweep(F["torch.complex64"], launch_ms)
+    phase_k3()
+    kernels.extend(phase_bb())
     rows = phase_k2_batched(launch_ms)
     launches, _, pscan = phase_optimizer(launch_ms)
     kernels.extend(_k2_entries(rows, launches))

@@ -300,12 +300,13 @@ print("OK")
 
 
 def test_port_imports_no_jax():
-    """No source file of the port, and not chip_smoke.py, imports jax or the
-    JAX package; importing this slice's modules loads neither (nor
-    matplotlib, which the plots import when they draw) and starts no
-    process."""
+    """No source file of the port, and neither chip_smoke.py nor the module
+    it shares with the tools, imports jax or the JAX package; importing this
+    slice's modules loads neither (nor matplotlib, which the plots import
+    when they draw) and starts no process."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    files = [os.path.join(root, "chip_smoke.py")]
+    files = [os.path.join(root, "chip_smoke.py"),
+             os.path.join(root, "tools", "chip_common.py")]
     for d, _, names in os.walk(os.path.join(root, "noisyquantumsimulator_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 90

@@ -34,7 +34,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+from tools.chip_common import SEED, population_near  # noqa: E402
 from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
 FIDS = ("avg_fidelity", "f00", "f01", "f10", "f11", "cz_phase_fidelity")
@@ -105,8 +105,8 @@ def _error_terms(problem, x0, bounds):
 
     rows = []
     for k in range(6):
-        rng = np.random.default_rng(cs.SEED + 10 + k)
-        pop = cs._population_near(x0, bounds, 1024 if k == 0 else 8, 0.02, rng)[:8]
+        rng = np.random.default_rng(SEED + 10 + k)
+        pop = population_near(x0, bounds, 1024 if k == 0 else 8, 0.02, rng)[:8]
         ref = run(pop, c128, False)
         rows.append({
             "inputs": _dF(run(pop, c128, True), ref),
@@ -137,8 +137,7 @@ def main() -> int:
         warnings.simplefilter("ignore", UserWarning)
         problem = engine.build_fixed_problem(app, app.make_full_noise())
     bounds, x0 = forward.get_jp_bangbang_bounds_and_x0(5)
-    pop = cs._population_near(x0, bounds, 1024, 0.02,
-                              np.random.default_rng(cs.SEED + 10))
+    pop = population_near(x0, bounds, 1024, 0.02, np.random.default_rng(SEED + 10))
     pop_dev = torch.as_tensor(pop, device="cuda")
     x0_dev = torch.as_tensor(x0, device="cuda")
     c128 = torch.complex128

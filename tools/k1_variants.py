@@ -28,7 +28,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+from tools.chip_common import SEED, cuda_ms, gate_plan, host_scan_inputs  # noqa: E402
 from noisyquantumsimulator_tpu_torch import _kernels  # noqa: E402
 from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 
@@ -99,7 +99,7 @@ def mma_peak_tflops(lib, sms):
         _kernels.check(lib, lib.nqs_mma_tf32_peak(_kernels.ptr(out), blocks, threads,
                                                   n_iter, stream), "mma peak")
     run(100)
-    ms = cs._cuda_ms(lambda: run(iters), 1)
+    ms = cuda_ms(lambda: run(iters), 1)
     products = blocks * threads // 32 * iters * 8
     return products * 2 * 16 * 8 * 8 / (ms * 1e-3) / 1e12
 
@@ -111,9 +111,9 @@ def main() -> int:
         return 2
     from noisyquantumsimulator_tpu_torch.solver.real_rep import _rotate
     libs, peak_lib = build()
-    rng = np.random.default_rng(cs.SEED)
+    rng = np.random.default_rng(SEED)
     for dim, B in ((3, 32768), (4, 8192)):
-        U, cq, ph, x0, D, P = cs._host_scan_inputs(cs._plan(dim))
+        U, cq, ph, x0, D, P = host_scan_inputs(gate_plan(dim))
         phases_bn = rng.uniform(0.95, 1.05, B)[:, None] * ph[None]
         args = [torch.as_tensor(a, device="cuda").to(torch.float32)
                 for a in (U, cq, phases_bn, x0)]
@@ -128,11 +128,11 @@ def main() -> int:
                     _kernels.ptr(v0), _kernels.ptr(out), B, S, n, D, P,
                     dphi.shape[1], stream), f"K1 variant {name!r}")
             if i == 0:
-                cs._cuda_ms(run, 10)                  # clocks up
+                cuda_ms(run, 10)                  # clocks up
             run()
             got = _rotate(out, ph_r[:, -1, None], cq_r, D, P)
             err = float((got - ref).abs().max() / ref.abs().max())
-            t = [cs._cuda_ms(run, 3) for _ in range(2)]
+            t = [cuda_ms(run, 3) for _ in range(2)]
             print(f"dim {dim} | {name} | {t[0]:.3f} / {t[1]:.3f} ms | rel err "
                   f"{err:.3e} | registers {', '.join(regs)}"
                   f"{' | spill stores ' + ', '.join(spills) if spills else ''}",

@@ -31,7 +31,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
+from tools.chip_common import PEAK_FP32, SEED, cuda_ms  # noqa: E402
 from noisyquantumsimulator_tpu_torch import _kernels  # noqa: E402
 from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
 from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (  # noqa: E402
@@ -114,7 +114,7 @@ def ffma_peak_tflops(lib, complex_pattern, sms):
             _kernels.ptr(out), int(complex_pattern), blocks, threads, n_iter,
             stream), "FMA peak")
     run(100)
-    ms = min(cs._cuda_ms(lambda: run(iters), 1) for _ in range(2))
+    ms = min(cuda_ms(lambda: run(iters), 1) for _ in range(2))
     return blocks * threads * iters * 64 * 2 / (ms * 1e-3) / 1e12
 
 
@@ -125,7 +125,7 @@ def main() -> int:
         return 2
     libs, peak_lib = build()
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(cs.SEED + 9)
+    gen.manual_seed(SEED + 9)
     for B, N, dtname, ms in SHAPES:
         dt = getattr(torch, dtname)
         R = torch.randn((B, N, N), dtype=dt, device="cuda", generator=gen)
@@ -144,11 +144,11 @@ def main() -> int:
                     _kernels.ptr(sc1), _kernels.ptr(counts), ms, B, N, stream),
                     f"K2 variant {name!r}")
             if i == 0:
-                cs._cuda_ms(run, 10)                  # clocks up
+                cuda_ms(run, 10)                  # clocks up
             run()
             err = float((out - ref).abs().max() / ref.abs().max())
-            t = [cs._cuda_ms(run, reps) for _ in range(2)]
-            one = min(cs._cuda_ms(lambda: run(s1), reps) for _ in range(2))
+            t = [cuda_ms(run, reps) for _ in range(2)]
+            one = min(cuda_ms(lambda: run(s1), reps) for _ in range(2))
             per = (min(t) - one) / 2
             route = "resident" if lib.nqs_masked_squaring_is_resident(code, N) \
                 else "tiled"
@@ -158,7 +158,7 @@ def main() -> int:
                   flush=True)
         lib_fn = lambda: torch.linalg.matrix_power(R, 8)
         lib_fn()
-        t = [cs._cuda_ms(lib_fn, reps) for _ in range(2)]
+        t = [cuda_ms(lib_fn, reps) for _ in range(2)]
         print(f"({B}, {N}) {dtname} | torch.linalg.matrix_power(R, 8) | "
               f"{t[0]:.4f} / {t[1]:.4f} ms", flush=True)
         del R, ref, out, s0, sc1
@@ -167,7 +167,7 @@ def main() -> int:
     for label, cplx in (("8 x 8 real tile", False), ("4 x 4 complex tile", True)):
         print(f"FP32 FMAs alone, {label}: "
               f"{ffma_peak_tflops(peak_lib, cplx, sms):.2f} TFLOP/s of "
-              f"{cs.PEAK_FP32 / 1e12:.0f} ({sms} SMs)", flush=True)
+              f"{PEAK_FP32 / 1e12:.0f} ({sms} SMs)", flush=True)
     print(*card(), sep=", ", flush=True)
     return 0
 

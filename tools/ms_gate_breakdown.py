@@ -25,8 +25,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-import chip_smoke as cs  # noqa: E402
 from noisyquantumsimulator_tpu_torch.bench import card  # noqa: E402
+from noisyquantumsimulator_tpu_torch.studies.ms_gate_engine_study import (  # noqa: E402
+    REGIMES)
+from noisyquantumsimulator_tpu_torch.utils.profiling import profile_window  # noqa: E402
 
 FAMILIES = (("K2", ("masked_square",)),
             ("cuBLAS products", ("gemm", "xmma", "cutlass", "cublas")),
@@ -40,7 +42,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    kw = cs.MS_REGIMES["yb171_default"]
+    kw = REGIMES["yb171_default"]
     run = lambda: ms_gate.simulate_ms_gate(n_fock=10, **kw)
     run()
     torch.cuda.synchronize()
@@ -67,7 +69,7 @@ def main() -> int:
         print(f"[ms breakdown]   own {tt:.3f} s, cumulative {ct:.3f} s, "
               f"{ncalls} calls: {name} ({Path(fn).name}:{line})", flush=True)
 
-    wall, idle, by_name, path = cs._profile_window(run, "ms_gate", n_calls=1)
+    wall, idle, by_name, path, _ = profile_window(run, "ms_gate", n_calls=1)
     if idle is None:
         print(f"[ms breakdown] profiler: no device events in {path}", flush=True)
     else:
