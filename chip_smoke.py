@@ -37,8 +37,8 @@ tests'); any failure raises and the script exits non-zero:
 
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
-              ptxas registers and spills of K1, K2, the population scan and
-              the min-sum v2c kernel (no spills allowed);
+              ptxas registers and spills of K1, K2, the population scan,
+              the min-sum v2c kernel and OSD-0 (no spills allowed);
               the time of one empty kernel launch
   5. gate     simulate_cz_gate(SmoothJPSimulationInputs(), device="cuda") at
               complex64 and complex128 vs a host complex128 scipy reference
@@ -59,7 +59,10 @@ tests'); any failure raises and the script exits non-zero:
               decode vs the CPU twin path on 4096 shots; then K3 and the
               v2c kernel vs their twins at the two tiers' shapes ((26, 288,
               65536) bf16 and (26, 288, 512) f32 for K3), both bit-exact,
-              and their times
+              and their times; the step (OSD-0 on the card) launching the
+              OSD-0 kernel once a rep with residue rows, then the kernel vs
+              its twin, the host C++ OSD-0, bit for bit on 37 residue rows
+              of the gross DEM, and both times
   9. K2 batched  K2 vs its twin and torch.linalg.matrix_power at the shapes
               where it does real work (K2_BATCHED: optimizer populations,
               bang-bang segments, the per-segment engine at dim 3 and 4, the
@@ -248,6 +251,7 @@ PSCAN_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/population_scan.cu"
 K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 V2C_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_v2c.cu"
+OSD0_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/osd0.cu"
 # the keys of the reference's bench.py records (main, main_bb), in its order;
 # the port's gate record adds power_limit after device
 GATE_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_sims_per_sec",
@@ -347,6 +351,12 @@ def phase_build():
         what = f"<{m.group(1)}, {m.group(2)}>" if m else name
         say("2 build", f"ptxas population scan {what}: {regs} registers, spill "
             f"stores {st} B, spill loads {ld} B, stack frame {stack.get(name)} B")
+        require(st == 0 and ld == 0, f"{name} spills")
+    osd = [r for r in _kernels.ptxas_report() if "osd0_kernel" in r[0]]
+    require(len(osd) == 1, f"ptxas report of the OSD-0 kernel, got {len(osd)}")
+    for name, regs, st, ld in osd:
+        say("2 build", f"ptxas OSD-0: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B")
         require(st == 0 and ld == 0, f"{name} spills")
     v2c = [r for r in _kernels.ptxas_report() if "v2c_kernel" in r[0]]
     require(len(v2c) == 4, f"ptxas report of the 4 v2c kernels, got {len(v2c)}")
@@ -754,10 +764,10 @@ def phase_k3():
         f"{bp_cuda.MAX_DEGREE}, as bp_cuda's")
 
 
-def phase_bb():
+def phase_bb(launch_ms):
     import torch
     from noisyquantumsimulator_tpu_torch import bench_bb
-    from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native, osd_cuda
     from noisyquantumsimulator_tpu_torch.qec.dem_decoder import (
         decoder_from_numpy)
     from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
@@ -924,7 +934,52 @@ def phase_bb():
                "library_note": "no single PyTorch call computes min-sum "
                                "variable-to-check messages",
                "shape": f"Ec={tables['Ec']} edges={n_edges} S=65536 bf16"}
-    return [k3_row, v2c_row]
+
+    # --- the step (OSD-0 on the card): one OSD-0 launch a rep with residue
+    # rows (the tier-2 shots), then the kernel vs its twin, the host C++
+    # OSD-0, bit for bit on a rep's residue rows at 37, and times
+    osd_cuda.osd0.launches = 0
+    outs = [w.step(gen(SEED + 200 + r)) for r in range(reps)]
+    torch.cuda.synchronize()
+    with_rows = sum(int((o[:-1, 1] == 2).any()) for o in outs)
+    osd_launches = osd_cuda.osd0.launches
+    require(osd_launches == with_rows,
+            f"the step launches OSD-0 once a rep with residue rows: "
+            f"{osd_launches} launches, {with_rows} such reps")
+    tab = osd_cuda.tables(dec.H, dec.obs_mask, w.k, "cuda")
+    tab_h = osd_cuda.tables(dec.H, dec.obs_mask, w.k, "cpu")
+    _, b, dets_r, bel_r, obs_r = w.e2e(gen(SEED + 10))
+    n_rows = 37
+    args = [t[:n_rows].contiguous() for t in (dets_r, bel_r, obs_r)]
+    args_h = [t.cpu() for t in args]
+    got = [t.cpu() for t in osd_cuda.osd0(tab, *args)]
+    want = osd_cuda.osd0(tab_h, *args_h)
+    differ = [int((g != x).sum()) for g, x in zip(got, want)]
+    require(differ == [0, 0, 0], f"OSD-0 on the card vs its twin at {n_rows} rows "
+            f"(est, flips, failures differ at {differ})")
+    k_ms = cuda_ms(lambda: osd_cuda.osd0(tab, *args), reps=50)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        osd_cuda.osd0(tab_h, *args_h)
+    twin_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # H packed and the columns' masks in once, each row's detectors, beliefs
+    # and observables in, its estimate, flips and flag out
+    nbytes = (8 * (tab["Hp"].numel() + tab["obs_mask"].numel())
+              + n_rows * (tab["m"] + 4 * tab["n"] + 4 * w.k + tab["n"] + 9))
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound, bound_by = max((bytes_ms, "bytes"), (launch_ms, "launch"))
+    say("8 bb", f"OSD-0 ({tab['m']} x {tab['n']}, rank {tab['rank']}) on {n_rows} "
+        f"residue rows of a rep with {int(b)}: the step launched it {osd_launches} "
+        f"times in {reps} reps; vs the twin bit for bit; kernel {k_ms:.4f} ms "
+        f"(bound {bound:.4f} ms, {bound_by}; bytes {bytes_ms:.5f} ms), the twin "
+        f"(host C++, copies included) {twin_ms:.4f} ms")
+    osd_row = {"name": "osd0", "route": "cuda", "source": OSD0_SOURCE,
+               "replaces": None, "launches": osd_launches, "max_abs_err": 0.0,
+               "ms": k_ms, "plain_ms": twin_ms, "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": None,
+               "library_note": "no single PyTorch call computes OSD-0 over GF(2)",
+               "shape": f"m={tab['m']} n={tab['n']} rows={n_rows}"}
+    return [k3_row, v2c_row, osd_row]
 
 
 # substrings of the names of cuBLAS / CUTLASS product kernels in a trace
@@ -3497,7 +3552,7 @@ def main(argv=None) -> int:
         "back to back, best of 3): no kernel's bound is below it")
     if args.only == "bb":
         phase_k3()
-        phase_bb()
+        phase_bb(launch_ms)
         return 0
     if args.only == "gradients":
         phase_gradients(launch_ms)
@@ -3538,7 +3593,7 @@ def main(argv=None) -> int:
     F = phase_gate()
     kernels = phase_sweep(F["torch.complex64"], launch_ms)
     phase_k3()
-    kernels.extend(phase_bb())
+    kernels.extend(phase_bb(launch_ms))
     rows = phase_k2_batched(launch_ms)
     launches, _, pscan = phase_optimizer(launch_ms)
     kernels.extend(_k2_entries(rows, launches))

@@ -63,6 +63,8 @@ _SIGNATURES = {
     "nqs_population_scan_f32": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_population_scan_f64": (_P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P),
     "nqs_population_scan_is_resident": (_I, _I, _I),
+    "nqs_osd0": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "nqs_osd0_smem_bytes": (_I, _I),
     "nqs_empty_launch": (_P,),
 }
 

@@ -16,12 +16,14 @@ and on the host, native OSD-0 on that residue (`osd_host`). `e2e` makes no
 host synchronisation, so callers can queue several reps before reading any
 (as `main_bb` does, letting host OSD overlap device work).
 
-`step` is one rep read back at once, shot by shot: e2e, then OSD-0 on the
-residue, returning in one host array (`answers`) every shot's predicted
-observable flips (the OSD-0 rows' written over theirs), the tier that
-decided it and the reliability of its beliefs, then the rep's failure
-count. It is the span nqs.step, around nqs.sample, nqs.decode and nqs.osd
-(`utils/observability`).
+`step` is one rep read back at once, shot by shot, with OSD-0 on the card:
+e2e, one read of the residue's row count, OSD-0 of those rows
+(`qec/osd_cuda.osd0`, one kernel launch; the host C++ twin for CPU tensors)
+with their predictions written over the shots' on the device, then one copy
+back of every shot's predicted observable flips, the tier that decided it
+and the reliability of its beliefs, and the rep's failure count, put
+together in one host array (`answers`). It is the span nqs.step, around
+nqs.sample, nqs.decode and nqs.osd (`utils/observability`).
 
 This module builds the workload and has no timing code of its own; callers
 time it (chip_smoke.py does).
@@ -38,6 +40,7 @@ from .qec.dem_decoder import DemBPDecoder
 from .qec.fast_sampler import build_fast_sampler
 from .qec.ldpc import bb_memory_circuit, css_n_k, gross_code
 from .qec.native import osd0_batch_native
+from .qec.osd_cuda import osd0, tables as osd0_tables
 from .utils.observability import span
 
 
@@ -51,7 +54,7 @@ class BBWorkload:
     sampler: Callable
     n: int                   # code length
     k: int                   # logical qubits (observables)
-    cap: int                 # residue rows shipped to host OSD per rep
+    cap: int                 # residue rows that reach OSD-0 per rep
     fast_iters: int
     decoder_label: str
 
@@ -83,6 +86,7 @@ def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
     cap = min(shots, max(shots // (64 if lean else 16), 32))
     obs_cols = np.stack([(dec.obs_mask >> b) & 1 for b in range(k)],
                         axis=1)                               # (n_var, k)
+    osd_tab = osd0_tables(dec.H, dec.obs_mask, k, dev)
 
     def rep(generator: torch.Generator):
         o = sampler(generator)
@@ -101,11 +105,14 @@ def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
     def e2e(generator: torch.Generator):
         return rep(generator)[0]
 
-    def osd_bits(n_bad: int, dets_r, bel_r) -> np.ndarray:
-        """(n_bad, k) predicted observable flips of the residue rows by OSD-0."""
+    def check_cap(n_bad: int) -> None:
         if n_bad > cap:
             raise RuntimeError(f"residue cap {cap} < non-converged {n_bad}: "
                                "the failure count would be short")
+
+    def osd_bits(n_bad: int, dets_r, bel_r) -> np.ndarray:
+        """(n_bad, k) predicted observable flips of the residue rows by OSD-0."""
+        check_cap(n_bad)
         if n_bad == 0:
             return np.zeros((0, k), np.int64)
         dets_h = dets_r[:n_bad].cpu().numpy()
@@ -134,19 +141,21 @@ def build_bb_workload(rounds: int = 3, p: float = 1e-3, shots: int = 65536,
             tier = missed.to(torch.int32) + bad.to(torch.int32)
             rel = torch.linalg.vector_norm(beliefs, float("-inf"), dim=1)
             rel = torch.round(rel * RELIABILITY_UNITS).clamp(max=2.0 ** 30).to(torch.int32)
-            shots_h = torch.stack([pred, tier, rel], dim=1).cpu().numpy()
             nb = int(n_bad)
+            check_cap(nb)
             with span("nqs.osd") as s:
                 s.note(nb)
-                pb = osd_bits(nb, dets_r, bel_r)
-                obs_h = obs_r[:nb].cpu().numpy()
-                rows = idx[:nb].cpu().numpy()
-            shots_h[rows, 0] = (pb << np.arange(k)).sum(axis=1)
-            n_fail = int(fails) + int((pb != obs_h).any(axis=1).sum())
-            return answers(shots_h, n_fail, k)
+                if nb:
+                    _, pb, osd_fail = osd0(osd_tab, dets_r[:nb], bel_r[:nb], obs_r[:nb])
+                    pred = pred.index_copy(0, idx[:nb], pb.to(pred.dtype))
+                    fails = fails + osd_fail.sum()
+            flat = torch.cat([torch.stack([pred, tier, rel], dim=1).flatten(),
+                              fails.view(1).to(torch.int32)]).cpu().numpy()
+            return answers(flat[:-1].reshape(-1, 3), int(flat[-1]), k)
 
     label = (f"tiered slot-BP (min-sum {eff_iters} iters bf16 + damped "
-             "min-sum 90-iter retry) + C++ OSD-0 on the non-converged residue")
+             "min-sum 90-iter retry) + OSD-0 of the non-converged residue "
+             "(on the card in step; C++ on the host after e2e)")
     return BBWorkload(e2e=e2e, osd_host=osd_host, step=step, decoder=dec,
                       circuit=circuit, sampler=sampler, n=n, k=k, cap=cap,
                       fast_iters=eff_iters, decoder_label=label)

@@ -21,6 +21,8 @@ executor).
                    and v2c (the variable-node update and the beliefs), with
                    their twins
   dem_decoder      tiered BP on the DEM + host OSD-0
+  osd_cuda         OSD-0 on the card, one block a shot, with the host C++
+                   OSD-0 as its twin
   native           the C++ OSD-0, exact matcher and erasure peeler (built
                    with the host compiler)
   color_code       triangular 6.6.6 color codes (host), BP+OSD memory
@@ -39,7 +41,7 @@ ClusterMatcher. Function names are the reference's.
 from . import (bp_cuda, circuits, cluster_matcher, color_code,  # noqa: F401
                compiler, decoders, dem, dem_decoder, erasure, exact_matcher,
                executor, fast_sampler, lattice_surgery, ldpc, ldpc_layout,
-               memory, native, nn_decoder, pauli_frame, scheduler,
+               memory, native, nn_decoder, osd_cuda, pauli_frame, scheduler,
                surface_code, topology, window_matcher)
 from .dem_decoder import DemBPDecoder, decoder_from_numpy  # noqa: F401
 from .fast_sampler import build_fast_sampler, sample_circuit_fast  # noqa: F401

@@ -187,6 +187,32 @@ def test_c_the_step_counts_its_failures_and_osd_rows(model, small, seed):
                                                @ model.obs.T.astype(np.int64)) % 2))
 
 
+def _host_osd_answers(w, seed):
+    """The step's answers put together as with OSD-0 on the host: the
+    decoder's predictions, tiers and reliabilities, the C++ OSD-0 of the
+    residue rows written over theirs, the failures counted on the host."""
+    o = w.sampler(_gen(seed))
+    pred, tier, beliefs, bad = _tiered(w.decoder, o["detectors"])
+    rel = np.round(np.abs(beliefs).min(axis=1) * bench_bb.RELIABILITY_UNITS)
+    shots = np.stack([pred, tier, rel], axis=1).astype(np.int64)
+    rows = np.nonzero(bad)[0]
+    est = osd0_batch_native(w.decoder.H, o["detectors"].numpy()[rows], beliefs[rows])
+    shots[rows, 0] = _packed((est.astype(np.int64) @ (
+        (w.decoder.obs_mask[:, None] >> np.arange(w.k)) & 1)) & 1)
+    n_fail = int((shots[:, 0] != _packed(o["observables"].numpy())).sum())
+    return bench_bb.answers(shots, n_fail, w.k), len(rows)
+
+
+@pytest.mark.parametrize("seed", [34, 35])
+def test_c_the_step_answers_as_with_host_osd(small, seed):
+    """(c) With OSD-0 in `osd_cuda.osd0` (on the CPU its twin, the C++ OSD-0)
+    and one copy back, the step answers bit for bit what it answered with
+    OSD-0 on the host after the answers' copy."""
+    want, n_rows = _host_osd_answers(small, seed)
+    assert n_rows > 0
+    assert np.array_equal(small.step(_gen(seed)), want)
+
+
 def test_c_a_residue_above_its_cap_raises():
     """At p = 2e-2 more shots than the cap's 32 of 256 leave both BP tiers
     unconverged: the step raises instead of returning a short count."""

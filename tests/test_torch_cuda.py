@@ -12,8 +12,9 @@ complex128 1e-12. The min-sum c2v kernel K3 is bit-exact against its twin
 at float32 and bfloat16 (one rounding of the same exact product); the v2c
 kernel rounds where its twin's torch ops round, so it may differ only by the
 order of a float32 sum of <= d_max terms: hard decisions equal, beliefs
-within one storage ulp, each reported with how many differ. The
-surface-code matchers (plain torch ops, no kernel of their own) are
+within one storage ulp, each reported with how many differ. OSD-0's kernel
+is bit-exact against its twin, the host C++ OSD-0, at the gross code's DEM.
+The surface-code matchers (plain torch ops, no kernel of their own) are
 bit-identical on the card and on the CPU; the fast sampler's detector rates
 lie within 5 binomial sigma of the DEM's analytic rates. The architecture
 loop's executor (torch ops) gives per-qubit frame rates within 5 binomial
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from noisyquantumsimulator_tpu_torch.qec import bp_cuda
+from noisyquantumsimulator_tpu_torch.qec import bp_cuda, osd_cuda
 from noisyquantumsimulator_tpu_torch.ops.expm_cuda import (
     _masked_squaring_plain, fused_masked_squaring)
 from noisyquantumsimulator_tpu_torch.solver.scan_cuda import (
@@ -651,6 +652,74 @@ def test_dem_decoder_cuda_matches_cpu(cuda):
     pc, bc, _ = dc._full(dets.cpu())
     assert torch.equal(bg.cpu(), bc)
     assert float((pg.cpu() == pc)[~bc].float().mean()) >= 0.999
+
+
+@pytest.fixture(scope="module")
+def gross_rep():
+    """The bb-gross workload on the card (the gross code, 3 rounds, p =
+    1e-3, 65536 shots a rep) and one rep's residue block (`cap` rows, the
+    n_bad unconverged ones first) at a fixed seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from noisyquantumsimulator_tpu_torch import bench_bb
+    w = bench_bb.build_bb_workload(3, 1e-3, 65536, 6, "cuda")
+    fails, n_bad, dets, bel, obs = w.e2e(_card_gen(2024))
+    return w, int(fails), int(n_bad), dets, bel, obs
+
+
+def _card_gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+@pytest.mark.parametrize("case", ["residue", "ties", "zero", "foreign", "none", "one",
+                                  "cap"])
+def test_osd0_kernel_bit_exact_vs_twin(cuda, gross_rep, case):
+    """OSD-0 on the card equals the host C++ OSD-0 bit for bit at the gross
+    code's DEM (288 x 1833, rank 282): the rep's residue rows; the same
+    syndromes under beliefs with ties and signed zeros; all-zero
+    syndromes; random syndromes H cannot produce (where the row choice
+    matters); no row, one row, the whole cap. The observable flips and the
+    failures are the estimate's; one launch a call with rows."""
+    from noisyquantumsimulator_tpu_torch.qec.native import osd0_batch_native
+    w, _, nb, dets, bel, obs = gross_rep
+    tab = osd_cuda.tables(w.decoder.H, w.decoder.obs_mask, w.k, cuda)
+    assert (tab["m"], tab["n"], tab["rank"]) == (288, 1833, 282) and nb > 0
+    rows = {"none": 0, "one": 1, "cap": w.cap}.get(case, nb)
+    dets, bel, obs = dets[:rows].contiguous(), bel[:rows].contiguous(), obs[:rows].contiguous()
+    g = _card_gen(31)
+    if case == "ties":
+        bel = torch.round(2 * torch.randn(bel.shape, generator=g, device=cuda))
+        bel[:, ::5] = -0.0
+        bel[:, 2::5] = 0.0
+    elif case == "zero":
+        dets = torch.zeros_like(dets)
+    elif case == "foreign":
+        dets = torch.randint(0, 2, dets.shape, generator=g, device=cuda, dtype=torch.uint8)
+    before = osd_cuda.osd0.launches
+    est, pred, fail = osd_cuda.osd0(tab, dets, bel, obs)
+    torch.cuda.synchronize()
+    assert osd_cuda.osd0.launches == before + (rows > 0)
+    want = osd0_batch_native(w.decoder.H, dets.cpu().numpy(), bel.cpu().numpy())
+    assert est.shape == (rows, 1833) and np.array_equal(est.cpu().numpy(), want)
+    bits = (want.astype(np.int64) @ ((w.decoder.obs_mask[:, None] >> np.arange(w.k)) & 1)) & 1
+    assert np.array_equal(pred.cpu().numpy(), (bits << np.arange(w.k)).sum(axis=1))
+    assert np.array_equal(fail.cpu().numpy(), (bits != obs.cpu().numpy()).any(axis=1))
+    if case == "zero":
+        assert not want.any()
+
+
+def test_bb_step_runs_osd0_once_on_the_card(cuda, gross_rep):
+    """The step at the rep's seed launches the OSD-0 kernel once, marks its
+    n_bad residue rows tier 2, and counts the failures that host OSD-0 of
+    the same residue counts."""
+    w, fails, nb, dets, bel, obs = gross_rep
+    before = osd_cuda.osd0.launches
+    out = w.step(_card_gen(2024))
+    assert osd_cuda.osd0.launches == before + 1
+    assert int((out[:-1, 1] == 2).sum()) == nb
+    assert out[-1, 0] == fails + w.osd_host(nb, dets, bel, obs)
 
 
 def test_expm_takes_every_squaring_and_marks_an_overrun_on_the_card(cuda):
