@@ -14,13 +14,24 @@ p (memory_z_circuit).
    rows, most-flagged first with ties to the lower index). The decoder is
    the reference's: at d <= 7 the tiered bitmask DP (K = 6 on every shot,
    K = 12 on the `heavy_capacity` heaviest shots of each 16384-shot chunk),
-   flagging shots with more than 12 defects; above d = 7 the exact cluster
+   flagging every shot it did not decode with all its defects (more than
+   12, or more than 6 past the chunk's heavy capacity); above d = 7 the exact cluster
    decomposition (size-class DPs, 24 slots, 4096-shot chunks) with its own
    flags. The flagged rows go to the host as uint8 rows by a non-blocking
    copy into pinned memory, and the native C++ exact decoder re-decodes
    them (`decode_batch_ex(mode=0)`) while later reps run on the device:
    every rep is queued before the first is drained. A flagged count above
    the fetch cap raises: a silent undercount is not a result.
+
+`step` (d <= 7) is one rep answered shot by shot, at once: sample
+(nqs.sample), the tiered DP (nqs.match: each DP once over every chunk, the
+heavy rows chosen chunk by chunk), one read of the
+flagged count, the flagged rows alone copied to the host and decoded there
+(`decode_batch_ex(mode=0)`), their answers written over the device's
+(nqs.escalate, carrying the row count), then one copy back of each shot's
+prediction, tier and matching weight and the rep's failures, put together in
+one host array (`answers`). The whole is the span nqs.step
+(`utils/observability`).
 
     python -m noisyquantumsimulator_tpu_torch.bench_qec --d 7 --rounds 7
     python -m noisyquantumsimulator_tpu_torch.bench_qec --d 5 --rounds 5 \\
@@ -50,15 +61,20 @@ from .qec.fast_sampler import build_fast_sampler
 from .qec.native import NativeMatchingDecoder
 from .qec.surface_code import memory_z_circuit
 from .utils.math import wilson_ci
+from .utils.observability import span
 from .utils.profiling import profile_window
 
 K_HEAVY = 12
+# a matching weight (a sum of log-likelihood ratios) is given in units of
+# 1 / WEIGHT_UNITS
+WEIGHT_UNITS = 1024
 
 
 @dataclass
 class QecWorkload:
     e2e: Callable            # e2e(generator) -> Rep, queued, no host sync
     drain: Callable          # drain(rep) -> logical errors of the rep
+    step: Optional[Callable]  # step(generator) -> `answers`; None above d = 7
     decoder: object          # TieredMatcher (d <= 7) or ClusterMatcher
     native: NativeMatchingDecoder
     circuit: object
@@ -93,17 +109,25 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 def device_decode(dec, dets: torch.Tensor, chunk: int):
     """(preds (S,) int32, flags (S,) bool) of the device stage, chunk by
-    chunk: the tiered DP flags shots with more than K_HEAVY defects, the
-    cluster decomposition its own uncertified shots."""
-    outs = []
-    for s0 in range(0, dets.shape[0], chunk):
-        c = dets[s0:s0 + chunk]
-        if isinstance(dec, TieredMatcher):
-            outs.append((dec.decode_device(c),
-                         c.to(torch.int32).sum(dim=1) > K_HEAVY))
-        else:
-            outs.append(dec.decode_device_with_overflow(c))
+    chunk: the tiered DP flags each shot it did not decode with all its
+    defects, the cluster decomposition its own uncertified shots."""
+    if isinstance(dec, TieredMatcher):
+        pred, _, _, exact = dec.decode_device_tiered(dets)
+        return pred, ~exact
+    outs = [dec.decode_device_with_overflow(dets[s0:s0 + chunk])
+            for s0 in range(0, dets.shape[0], chunk)]
     return (torch.cat([p for p, _ in outs]), torch.cat([f for _, f in outs]))
+
+
+def answers(shots: np.ndarray, n_fail: int, n_flagged: int) -> np.ndarray:
+    """A step's answers as one (S + 1, 3) int32 host array. Row i < S is
+    shot i: its predicted logical flip (0 / 1), the tier that decided it (0:
+    the K = 6 DP, 1: the K = 12 DP, 2: the host's exact decode, 3: the
+    host's decode, not certified exact) and its matching weight in units of
+    1 / WEIGHT_UNITS. The last row is (the step's failures, the shots
+    escalated to the host, 0)."""
+    return np.concatenate([shots.astype(np.int32),
+                           np.array([[n_fail, n_flagged, 0]], np.int32)])
 
 
 def build_qec_workload(d: int = 7, rounds: int = 7, p: float = 1e-3,
@@ -172,7 +196,49 @@ def build_qec_workload(d: int = 7, rounds: int = 7, p: float = 1e-3,
         pred = nat.decode_batch_ex(rep.dets.numpy()[sel], mode=0)["pred"] & 1
         return n_err + int(np.sum(pred != (rep.obs.numpy()[sel] & 1)))
 
-    return QecWorkload(e2e=e2e, drain=drain, decoder=dec, native=nat,
+    first = True
+
+    def step(generator: torch.Generator) -> np.ndarray:
+        # the span nqs.step; the first call (the native library's load, the
+        # first device calls) is recorded in any case
+        nonlocal first
+        with span("nqs.step", always=first):
+            first = False
+            o = sampler(generator)
+            obs = o["observables"][:, 0].to(torch.int32)
+            with span("nqs.match"):
+                pred, tier, weight, exact = dec.decode_device_tiered(o["detectors"])
+                weight = (weight * WEIGHT_UNITS).round().clamp(max=2.0 ** 30)
+                weight = weight.to(torch.int32)
+                flags = ~exact
+                n_flag_d = flags.sum()
+            # the step's one read before the answers, outside nqs.match (its
+            # launches) and nqs.escalate (the host's decode)
+            n_flag = int(n_flag_d)
+            if n_flag > cap:
+                raise RuntimeError(f"escalation fetch cap {cap} < flagged "
+                                   f"{n_flag}: the answers would not be exact")
+            with span("nqs.escalate") as s:
+                s.note(n_flag)
+                if n_flag:
+                    idx = stable_top_rows(flags, n_flag)
+                    r = nat.decode_batch_ex(
+                        o["detectors"].index_select(0, idx).cpu().numpy(), mode=0)
+                    esc = torch.as_tensor(np.stack([
+                        r["pred"] & 1, np.where(r["exact"], 2, 3),
+                        np.minimum(np.round(r["cost"] * WEIGHT_UNITS), 2.0 ** 30)],
+                        axis=1).astype(np.int32)).to(dev)
+                    pred = pred.index_copy(0, idx, esc[:, 0])
+                    tier = tier.index_copy(0, idx, esc[:, 1])
+                    weight = weight.index_copy(0, idx, esc[:, 2])
+            fails = ((pred ^ obs) & 1).sum().to(torch.int32)
+            flat = torch.cat([torch.stack([pred, tier, weight], dim=1).flatten(),
+                              fails.view(1)]).cpu().numpy()
+            return answers(flat[:-1].reshape(-1, 3), int(flat[-1]), n_flag)
+
+    return QecWorkload(e2e=e2e, drain=drain,
+                       step=step if isinstance(dec, TieredMatcher) else None,
+                       decoder=dec, native=nat,
                        circuit=circuit, sampler=sampler, d=d, rounds=rounds,
                        p=p, decode_shots=decode_shots, chunk=chunk, cap=cap,
                        label=label)

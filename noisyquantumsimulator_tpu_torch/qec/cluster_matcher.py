@@ -153,8 +153,8 @@ class ClusterMatcher:
         msl = _first_rows(mem, K)                                # (cap, K)
         filled = torch.gather(mem, 1, msl)
         mdet = torch.where(filled, torch.gather(det_idx[s_id], 1, msl), N)
-        rp = _dp_from_tables(*_slot_tables(mdet, self._dist, self._par),
-                             tabs)
+        rp, _ = _dp_from_tables(*_slot_tables(mdet, self._dist, self._par),
+                                tabs)
         return torch.where(ok, rp, 0), s_id, ok
 
     def decode_device_with_overflow(self, dets: torch.Tensor):

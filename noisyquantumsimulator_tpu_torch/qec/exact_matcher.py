@@ -138,12 +138,14 @@ def _dp_from_tables(WmT: torch.Tensor, PmT: torch.Tensor, WbT: torch.Tensor,
     """The bitmask-DP level loop on level-major slot tables.
 
     WmT/PmT (K*K, R), WbT/PbT (K, R) as `_slot_tables` gives them. Returns
-    the (R,) int32 matching observable parity, and with keep_costs the list
-    of every level's dp costs (L_k, R) for the backtrace."""
+    the (R,) int32 matching observable parity and the (R,) matching weight
+    (the last level's dp cost), and with keep_costs the list of every
+    level's dp costs (L_k, R) for the backtrace."""
     K = tabs.K
     R = WmT.shape[1]
     dev = WmT.device
-    big = torch.tensor(_BIG, dtype=WmT.dtype, device=dev)
+    # made on the device: a host scalar copied there would sync the stream
+    big = torch.full((), _BIG, dtype=WmT.dtype, device=dev)
     zero8 = torch.zeros((), dtype=torch.uint8, device=dev)
     dpc2 = dpp2 = None
     dpc1 = torch.zeros((1, R), dtype=WmT.dtype, device=dev)
@@ -180,12 +182,13 @@ def _dp_from_tables(WmT: torch.Tensor, PmT: torch.Tensor, WbT: torch.Tensor,
         if keep_costs:
             costs.append(dpc)
     par = dpp1[0].to(torch.int32)                  # level K: one mask
-    return (par, costs) if keep_costs else par
+    return (par, dpc1[0], costs) if keep_costs else (par, dpc1[0])
 
 
 def _dp_decode(dets: torch.Tensor, dist: torch.Tensor, parity: torch.Tensor,
-               tabs: _LevelTables) -> torch.Tensor:
-    """dets (S, n_det) 0/1 -> exact matching observable parity (S,) int32."""
+               tabs: _LevelTables):
+    """dets (S, n_det) 0/1 -> (exact matching observable parity (S,) int32,
+    its weight (S,))."""
     nodes, _ = defect_slots(dets, tabs.K)
     return _dp_from_tables(*_slot_tables(nodes, dist, parity), tabs)
 
@@ -211,7 +214,7 @@ def _dp_decode_trace(dets: torch.Tensor, dist: torch.Tensor,
     dev = dets.device
     nodes, _ = defect_slots(dets, K)
     WmT, PmT, WbT, PbT = _slot_tables(nodes, dist, parity)
-    _, costs = _dp_from_tables(WmT, PmT, WbT, PbT, tabs, keep_costs=True)
+    _, _, costs = _dp_from_tables(WmT, PmT, WbT, PbT, tabs, keep_costs=True)
     big = torch.tensor(_BIG, dtype=dist.dtype, device=dev)
     flat = torch.full((1 << K, S), _BIG, dtype=dist.dtype, device=dev)
     for k in range(K + 1):
@@ -343,6 +346,11 @@ class ExactMatcher:
 
     def decode_device(self, dets: torch.Tensor) -> torch.Tensor:
         """(S, n_det) on the device -> (S,) int32, no host sync."""
+        return self.decode_device_weighted(dets)[0]
+
+    def decode_device_weighted(self, dets: torch.Tensor):
+        """(S, n_det) on the device -> (pred (S,) int32, the matching's
+        weight (S,) float32), no host sync."""
         return _dp_decode(dets, self._dist, self._par, self._tabs)
 
     def match_device(self, dets: torch.Tensor):
@@ -410,7 +418,7 @@ class TieredMatcher:
 
     Shots with more than K_heavy defects, and heavy shots past the chunk's
     capacity, keep the truncated-defect rule; `overflow_fraction` counts
-    both."""
+    both, and `decode_device_tiered` marks them not exact."""
 
     def __init__(self, n_detectors: int, edges: np.ndarray, probs: np.ndarray,
                  obs: np.ndarray, k_light: int = 6, k_heavy: int = 12,
@@ -437,16 +445,53 @@ class TieredMatcher:
         self.heavy_capacity = C
         self.device = self.light.device
 
-    def decode_device(self, dets: torch.Tensor) -> torch.Tensor:
-        """(S, n_det) on the device -> (S,) int32, no host sync."""
-        k = min(self.heavy_capacity, dets.shape[0])
+    def _served(self, nd: torch.Tensor):
+        """(hidx: the rows that the K_heavy DP re-decodes, the
+        `heavy_capacity` heaviest of each block of `chunk` rows (the last
+        block may be shorter); exact (S,) bool: the rows decoded with all
+        their defects) from the defect counts nd (S,). The full blocks are
+        ranked by one stable sort, row by row."""
+        S, C = nd.shape[0], self.chunk
+        full = S - S % C
+        parts = []
+        if full:
+            order = torch.sort(-nd[:full].to(torch.int64).view(-1, C), dim=1,
+                               stable=True).indices[:, :self.heavy_capacity]
+            starts = torch.arange(0, full, C, device=nd.device)
+            parts.append((order + starts[:, None]).reshape(-1))
+        if full < S:
+            parts.append(full + stable_top_rows(
+                nd[full:], min(self.heavy_capacity, S - full)))
+        hidx = torch.cat(parts) if len(parts) > 1 else parts[0]
+        exact = (nd <= self.k_light).index_copy(
+            0, hidx, nd.index_select(0, hidx) <= self.max_defects)
+        return hidx, exact
+
+    def decode_device_tiered(self, dets: torch.Tensor):
+        """(S, n_det) on the device -> (pred (S,) int32, tier (S,) int32: 1
+        where the K_heavy DP decided the shot, else 0; weight (S,) float32:
+        the matching weight of the DP that decided it; exact (S,) bool: the
+        shot was decoded with all its defects), no host sync. Each block of
+        `chunk` rows is a chunk of its own (its heavy rows chosen among its
+        rows), and each DP runs once over the rows of all the blocks."""
         nd = dets.to(torch.int32).sum(dim=1)
-        p = self.light.decode_device(dets)
-        hidx = stable_top_rows(nd, k)
-        p_heavy = self.heavy.decode_device(dets.index_select(0, hidx))
+        p, w = self.light.decode_device_weighted(dets)
+        hidx, exact = self._served(nd)
+        p_heavy, w_heavy = self.heavy.decode_device_weighted(
+            dets.index_select(0, hidx))
         is_heavy = nd.index_select(0, hidx) > self.k_light
-        upd = torch.where(is_heavy, p_heavy, p.index_select(0, hidx))
-        return p.index_copy(0, hidx, upd)
+        pred = p.index_copy(0, hidx, torch.where(is_heavy, p_heavy,
+                                                 p.index_select(0, hidx)))
+        weight = w.index_copy(0, hidx, torch.where(is_heavy, w_heavy,
+                                                   w.index_select(0, hidx)))
+        tier = torch.zeros_like(pred).index_copy(0, hidx,
+                                                 is_heavy.to(torch.int32))
+        return pred, tier, weight, exact
+
+    def decode_device(self, dets: torch.Tensor) -> torch.Tensor:
+        """(S, n_det) on the device -> (S,) int32, chunk by chunk, no host
+        sync."""
+        return self.decode_device_tiered(dets)[0]
 
     def decode_batch(self, detectors) -> np.ndarray:
         t0 = time.perf_counter()
@@ -459,15 +504,7 @@ class TieredMatcher:
         """(S,) bool on the device: the shots decoded with all their defects
         (at most K_light, or a heavy shot the chunk's capacity served with
         at most K_heavy), chunk by chunk as decode_device selects them."""
-        out = []
-        for s0 in range(0, dets.shape[0], self.chunk):
-            nd = dets[s0:s0 + self.chunk].to(torch.int32).sum(dim=1)
-            hidx = stable_top_rows(nd, min(self.heavy_capacity, nd.shape[0]))
-            served = torch.zeros_like(nd, dtype=torch.bool).index_fill(
-                0, hidx, True)
-            out.append((nd <= self.k_light)
-                       | (served & (nd <= self.max_defects)))
-        return torch.cat(out)
+        return self._served(dets.to(torch.int32).sum(dim=1))[1]
 
     def overflow_fraction(self, detectors) -> float:
         """Shots decoded with a truncated defect set: more than K_heavy

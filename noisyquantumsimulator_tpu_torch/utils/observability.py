@@ -17,6 +17,14 @@ nqs.step):
   nqs.osd     the host OSD-0 of the residue, its copy to the host included;
               its count is the residue rows it decoded
 
+and of the surface-code memory step (`bench_qec.build_qec_workload`'s step,
+an nqs.step around nqs.sample):
+
+  nqs.match     the tiered exact DP and its flags
+  nqs.escalate  the flagged rows' copy to the host, their native exact
+                decode and the scatter of their answers; its count is the
+                rows it decoded
+
 A record is `Span(name, start_ns, end_ns, parent, step, count)`. Its times
 come from `time.time_ns()`, the clock of torch.profiler's chrome trace (an
 event's `ts` in us x 1e3 plus the file's `baseTimeNanoseconds`), so a span is
