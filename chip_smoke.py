@@ -38,7 +38,8 @@ tests'); any failure raises and the script exits non-zero:
   1. device   the card's name and its nvidia-smi name and power limit
   2. build    nvcc builds csrc/*.cu (noisyquantumsimulator_tpu_torch/_build);
               ptxas registers and spills of K1, K2, the population scan,
-              the min-sum v2c kernel and OSD-0 (no spills allowed);
+              the min-sum v2c kernel, OSD-0 and the sampler's fault walk (no
+              spills allowed);
               the time of one empty kernel launch
   5. gate     simulate_cz_gate(SmoothJPSimulationInputs(), device="cuda") at
               complex64 and complex128 vs a host complex128 scipy reference
@@ -55,14 +56,19 @@ tests'); any failure raises and the script exits non-zero:
               code [[144,12]], 3 rounds, p = 1e-3, 65,536 shots, one warm-up
               rep and 3 reps queued before any sync: p_logical with its
               Wilson CI, the launch counts of K3 and of the v2c kernel in
-              that run (98 a rep each: 7 fast, 91 retry); the card's tiered
+              that run (98 a rep each: 7 fast, 91 retry) and of the sampler
+              kernel (one a rep); the card's tiered
               decode vs the CPU twin path on 4096 shots; then K3 and the
               v2c kernel vs their twins at the two tiers' shapes ((26, 288,
               65536) bf16 and (26, 288, 512) f32 for K3), both bit-exact,
               and their times; the step (OSD-0 on the card) launching the
               OSD-0 kernel once a rep with residue rows, then the kernel vs
               its twin, the host C++ OSD-0, bit for bit on 37 residue rows
-              of the gross DEM, and both times
+              of the gross DEM, and both times; last the sampler kernel vs
+              its twin, the op route, bit for bit on the op route's draws at
+              the reps' shape (65536 shots x 2088 draws), its time with the
+              layout it picks, with one thread a shot and the op route's,
+              and its bound (Philox's integer operations, the rows' bytes)
   9. K2 batched  K2 vs its twin and torch.linalg.matrix_power at the shapes
               where it does real work (K2_BATCHED: optimizer populations,
               bang-bang segments, the per-segment engine at dim 3 and 4, the
@@ -118,7 +124,9 @@ tests'); any failure raises and the script exits non-zero:
  14. surface    the surface-code memory path (bench_qec, the reference's
               `bench.py --qec` records qec_d7 and qec_d9): the fast sampler's
               detector rates at d = 7 over one 2^20-shot block against the
-              DEM's analytic rates (5 sigma); at each distance, 4096 shots
+              DEM's analytic rates (5 sigma); the sampler kernel vs the op
+              route at the decode's shape (131072 x 2576), as in phase 8;
+              at each distance, 4096 shots
               decoded on the card against the native whole-shot exact DP
               (mode 1) on every shot the card certifies, and bit-identical
               to the port's CPU path (predictions and flags); then the
@@ -126,8 +134,9 @@ tests'); any failure raises and the script exits non-zero:
               sample + exact decode + host escalation shots/s, p_L with its
               Wilson CI (must overlap BENCH_CANON.json's), escalated fraction,
               peak device memory, the idle share of one rep and its top
-              device ops. No kernel of the port runs here: the device work is
-              torch ops, as the reference's is XLA
+              device ops, and the sampler kernel's launches (one a sample).
+              The sampler is the one kernel of the port that runs here: the
+              decode is torch ops, as the reference's is XLA
  15. cavity     simulate_cavity_gate(n_fock=6) at the two regimes of the
               shipped cavity records (7 noise cases, one (1, 576, 576)
               complex128 expm each, K2 tiled) against those records and the
@@ -240,8 +249,8 @@ from pathlib import Path
 import numpy as np
 
 from tools.chip_common import (
-    PEAK_BYTES, PEAK_FP32, PEAK_FP64, PEAK_TF32, SEED, cuda_ms, gate_plan,
-    host_scan_inputs, population_near)
+    PEAK_BYTES, PEAK_FP32, PEAK_FP64, PEAK_INT32, PEAK_TF32, SEED, cuda_ms,
+    gate_plan, host_scan_inputs, population_near)
 
 K1_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/phase_scan.cu"
 K1_REPLACES = "noisyquantumsimulator_tpu/solver/scan_pallas.py:71"
@@ -252,6 +261,8 @@ K3_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_c2v.cu"
 K3_REPLACES = "noisyquantumsimulator_tpu/qec/bp_kernels.py:38"
 V2C_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/bp_v2c.cu"
 OSD0_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/osd0.cu"
+SAMPLER_SOURCE = "noisyquantumsimulator_tpu_torch/csrc/fast_sampler.cu"
+PHILOX_OPS = 70    # integer operations of one Philox4x32-10 call (10 rounds)
 # the keys of the reference's bench.py records (main, main_bb), in its order;
 # the port's gate record adds power_limit after device
 GATE_KEYS = ("metric", "value", "unit", "vs_baseline", "baseline_sims_per_sec",
@@ -365,6 +376,13 @@ def phase_build():
         what = f"<{m.group(1)}, {m.group(2)}>" if m else name
         say("2 build", f"ptxas v2c {what}: {regs} registers, spill stores {st} B, "
             f"spill loads {ld} B, stack frame {stack.get(name)} B")
+        require(st == 0 and ld == 0, f"{name} spills")
+    walk = [r for r in _kernels.ptxas_report() if "fault_walk_kernel" in r[0]]
+    require(len(walk) == 2, f"ptxas report of the 2 sampler kernels, got {len(walk)}")
+    for name, regs, st, ld in walk:
+        what = "given draws" if "ILb1E" in name else "Philox"
+        say("2 build", f"ptxas sampler fault walk ({what}): {regs} registers, spill "
+            f"stores {st} B, spill loads {ld} B, stack frame {stack.get(name)} B")
         require(st == 0 and ld == 0, f"{name} spills")
 
 
@@ -764,10 +782,64 @@ def phase_k3():
         f"{bp_cuda.MAX_DEGREE}, as bp_cuda's")
 
 
+def _fault_walk_row(sample, shots, gen, launch_ms, launches, phase):
+    """The sampler kernel against its twin, the op route, at one main-path
+    shape (none of these launches is in `launches`): bit for bit on the op
+    route's draws; then a sample from a generator (the key's draw included)
+    timed with the layout the wrapper picks against one thread a shot, and
+    against the op route. Returns the kernel's `kernels` row."""
+    from unittest import mock
+    from noisyquantumsimulator_tpu_torch.qec import sampler_cuda
+    tab = sample.device_table
+    n_draws = tab["n_draws"]
+    n_out = tab["n_det"] + tab["n_obs"] + tab["n_erase"]
+    u, ebits = sample.draws(gen)
+    got = sampler_cuda.walk(tab, shots, draws=(u, ebits))
+    want = sample.op_route(u, ebits)
+    differ = [int((g != want[k]).sum())
+              for g, k in zip(got, ("detectors", "observables", "heralds"))]
+    require(differ == [0, 0, 0], f"sampler kernel vs the op route on its draws at "
+            f"{shots} x {n_draws} (detectors, observables, heralds differ at {differ})")
+    del u, ebits, got, want
+
+    def kernel():
+        return sample(gen)
+
+    def one_thread():
+        with mock.patch.object(sampler_cuda, "SPLIT_THREADS", 0):
+            return sample(gen)
+
+    with mock.patch.object(sampler_cuda, "SPLIT_THREADS", 0):
+        require(sampler_cuda.layout(n_out, n_draws, shots)[1] == 1,
+                "the layout without a split walks one thread a shot")
+    k_ms, one_ms = _kernel_vs_plain_ms(kernel, one_thread, reps=20)
+    k2_ms, p_ms = _kernel_vs_plain_ms(kernel, lambda: sample.op_route(*sample.draws(gen)),
+                                      reps=5)
+    # one Philox call a shot and four draws; the uint8 rows out
+    calls = shots * -(-n_draws // 4)
+    ops_ms = calls * PHILOX_OPS / PEAK_INT32 * 1e3
+    bytes_ms = shots * n_out / PEAK_BYTES * 1e3
+    bound, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"), (launch_ms, "launch"))
+    block_shots, split, _ = sampler_cuda.layout(n_out, n_draws, shots)
+    say(phase, f"sampler fault walk ({shots} shots, {n_draws} draws, {len(sample.order)} "
+        f"fault bits, {n_out} outputs): vs the op route bit for bit on its draws; "
+        f"kernel {k_ms:.4f} / {k2_ms:.4f} ms ({block_shots} shots a block, {split} threads "
+        f"a shot), one thread a shot {one_ms:.4f} ms, the op route {p_ms:.4f} ms; bound "
+        f"{bound:.4f} ms ({bound_by}: {calls} Philox calls {ops_ms:.4f} ms, bytes "
+        f"{bytes_ms:.4f} ms), {bound / k_ms:.1%} of it")
+    return {"name": "fault_walk", "route": "cuda", "source": SAMPLER_SOURCE,
+            "replaces": None, "launches": launches, "max_abs_err": 0.0,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": bound_by,
+            "one_thread_a_shot_ms": one_ms, "library_ms": None,
+            "library_note": "no single PyTorch call draws a circuit's faults and "
+                            "XORs their signatures",
+            "shape": f"shots={shots} draws={n_draws} outputs={n_out} split={split}"}
+
+
 def phase_bb(launch_ms):
     import torch
     from noisyquantumsimulator_tpu_torch import bench_bb
-    from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native, osd_cuda
+    from noisyquantumsimulator_tpu_torch.qec import bp_cuda, native, osd_cuda, sampler_cuda
     from noisyquantumsimulator_tpu_torch.qec.dem_decoder import (
         decoder_from_numpy)
     from noisyquantumsimulator_tpu_torch.utils.math import wilson_ci
@@ -796,7 +868,7 @@ def phase_bb(launch_ms):
     torch.cuda.synchronize()
 
     # --- the main path, counted: only the reps run between reset and read
-    bp_cuda.c2v.launches = bp_cuda.v2c.launches = 0
+    bp_cuda.c2v.launches = bp_cuda.v2c.launches = sampler_cuda.walk.launches = 0
     fails = bad = 0
     # queue every rep before syncing any, so host OSD of rep r overlaps
     # the device work of rep r + 1
@@ -807,16 +879,19 @@ def phase_bb(launch_ms):
         bad += nb
     torch.cuda.synchronize()
     launches, v2c_launches = bp_cuda.c2v.launches, bp_cuda.v2c.launches
+    walk_launches = sampler_cuda.walk.launches
     n_tot = shots * reps
     p_l = fails / n_tot
     lo, hi = wilson_ci(fails, n_tot)
     say("8 bb", f"{reps} reps x {shots} shots: e2e_n_errors = {fails}, "
         f"p_logical = {p_l:.3e} (95% Wilson CI [{lo:.3e}, {hi:.3e}]); "
         f"non-converged fraction {bad / n_tot:.4e} ({bad} OSD residue rows, cap "
-        f"{w.cap} per rep); launches in the reps: K3 {launches}, v2c {v2c_launches}")
+        f"{w.cap} per rep); launches in the reps: K3 {launches}, v2c {v2c_launches}, "
+        f"sampler {walk_launches}")
     per_rep = (w.fast_iters + 1) + (dec.retry_iters + 1)
     require(launches == v2c_launches == per_rep * reps,
             f"K3 and v2c launch {per_rep} times a rep (7 fast + 91 retry)")
+    require(walk_launches == reps, "the sampler kernel launches once a rep")
     require(p_l <= 1e-4, f"p_logical_shot {p_l:.3e} <= 1e-4")
 
     # --- the card's tiered decode vs the CPU twin path on one detector batch
@@ -979,7 +1054,9 @@ def phase_bb(launch_ms):
                "library_ms": None,
                "library_note": "no single PyTorch call computes OSD-0 over GF(2)",
                "shape": f"m={tab['m']} n={tab['n']} rows={n_rows}"}
-    return [k3_row, v2c_row, osd_row]
+    walk_row = _fault_walk_row(w.sampler, shots, gen(SEED + 11), launch_ms,
+                               walk_launches, "8 bb")
+    return [k3_row, v2c_row, osd_row, walk_row]
 
 
 # substrings of the names of cuBLAS / CUTLASS product kernels in a trace
@@ -1965,12 +2042,13 @@ def _qec_checks(tag, d, rounds, gen):
             "every certified shot")
 
 
-def phase_surface():
+def phase_surface(launch_ms):
     """Phase 14: the surface-code memory path at the reference's qec_d7 and
-    qec_d9 sizes (bench_qec)."""
+    qec_d9 sizes (bench_qec). Returns the sampler kernel's entry at the
+    decode's d = 7 shape."""
     import torch
     from noisyquantumsimulator_tpu_torch import bench_qec
-    from noisyquantumsimulator_tpu_torch.qec import native
+    from noisyquantumsimulator_tpu_torch.qec import native, sampler_cuda
     from noisyquantumsimulator_tpu_torch.qec.fast_sampler import (
         build_fast_sampler)
     from noisyquantumsimulator_tpu_torch.qec.surface_code import memory_z_circuit
@@ -2003,18 +2081,32 @@ def phase_surface():
     require(np.abs(z).max() < 5.0, "sampler rates within 5 sigma of the DEM")
     del sampler, counts
     torch.cuda.empty_cache()
+    sampler = build_fast_sampler(circuit, QEC_DECODE_SHOTS, "cuda")
+    walk_row = _fault_walk_row(sampler, QEC_DECODE_SHOTS, gen(SEED + 15), launch_ms,
+                               None, "14 surface")
+    del sampler
+    torch.cuda.empty_cache()
 
     # --- decoder checks at both distances
     for tag, d, _, _ in QEC_RECORDS:
         _qec_checks(tag, d, d, gen(SEED + 140 + d))
         torch.cuda.empty_cache()
 
-    # --- the records
+    # --- the records; the sampler kernel's launches counted in each: the
+    # throughput's warm-up and calls, the decode's warm-up and reps, the
+    # profiled rep and its warm-up
     for tag, d, shots, reps in QEC_RECORDS:
+        sampler_cuda.walk.launches = 0
         rec = bench_qec.main_qec(d=d, rounds=d, p=1e-3, shots=shots,
                                  decode_shots=QEC_DECODE_SHOTS,
                                  reps_decode=reps, seed=0, device="cuda")
         torch.cuda.empty_cache()
+        launches = sampler_cuda.walk.launches
+        require(launches == rec["sample_calls"] + reps + 4,
+                f"{tag}: the sampler kernel launches once a sample ({launches} "
+                f"launches, {rec['sample_calls']} throughput calls, {reps} reps)")
+        if tag == "qec_d7":
+            walk_row["launches"] = launches
         print(json.dumps(rec, separators=(",", ":")), flush=True)
         lo, hi = rec["e2e_p_logical_ci95"]
         rlo, rhi = canon[tag]["e2e_p_logical_ci95"]
@@ -2033,6 +2125,7 @@ def phase_surface():
                 <= rec["e2e_fetch_cap"], f"{tag}: escalation under the fetch cap")
     say("14 surface", f"phase wall time {time.perf_counter() - t_phase:.1f} s "
         f"(reps: {', '.join(f'{t} {r}' for t, _, _, r in QEC_RECORDS)})")
+    return walk_row
 
 
 def _spy_expm(stacks):
@@ -3564,7 +3657,7 @@ def main(argv=None) -> int:
         phase_primitives(launch_ms)
         return 0
     if args.only == "surface":
-        phase_surface()
+        phase_surface(launch_ms)
         return 0
     if args.only == "architecture":
         phase_cavity(launch_ms)
@@ -3601,7 +3694,7 @@ def main(argv=None) -> int:
     kernels.append(phase_gradients(launch_ms))
     kernels.append(phase_channel(launch_ms)[1])
     kernels.extend(phase_primitives(launch_ms))
-    phase_surface()
+    kernels.append(phase_surface(launch_ms))
     kernels.extend(phase_cavity(launch_ms))
     phase_architecture()
     kernels.extend(phase_parallel(launch_ms))

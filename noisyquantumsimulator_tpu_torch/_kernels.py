@@ -40,6 +40,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_SMEM_BYTES = 232448    # 227 KB: the most dynamic shared memory an H100 block takes
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +66,8 @@ _SIGNATURES = {
     "nqs_population_scan_is_resident": (_I, _I, _I),
     "nqs_osd0": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nqs_osd0_smem_bytes": (_I, _I),
+    "nqs_fault_walk": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _P),
     "nqs_empty_launch": (_P,),
 }
 

@@ -4,7 +4,8 @@ executor).
 
   circuits         stabilizer-circuit IR (host numpy)
   dem              detector error model by frame propagation (host numpy)
-  fast_sampler     one-matmul detector sampler (torch, explicit generator)
+  fast_sampler     circuit-exact detector sampler (one CUDA kernel a sample;
+                   the torch op route elsewhere; explicit generator)
   pauli_frame      per-instruction Pauli-frame sampler (torch)
   surface_code     rotated surface-code layouts and memory circuits (host)
   decoders         matching graph (APSP), batched greedy, host union-find

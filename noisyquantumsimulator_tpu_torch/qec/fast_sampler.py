@@ -1,4 +1,4 @@
-"""One-matmul stabilizer sampler: circuit-exact detector sampling.
+"""Circuit-exact stabilizer sampler: one fault draw a site, signatures XORed.
 
 Counterpart of the reference's `qec/fast_sampler.py`. Frame propagation is
 linear over GF(2):
@@ -6,18 +6,29 @@ linear over GF(2):
     detectors = (sum over fault sites e of  bit_e * signature_e)  mod 2
 
 so the whole circuit collapses, at build time and on the host, into a
-fault-site -> detector signature matrix F (n_sites x n_detectors). On the
-device one sample is then
-
-    1. draw the per-site fault bits E (uniforms + compares),
-    2. detectors = (E @ F) & 1, one product per block of sites.
+fault-site -> detector signature matrix F (n_sites x n_detectors). A sample
+then draws one uniform per noisy site and shot, compares it with the site's
+float32 thresholds and adds the signatures of the bits it sets.
 
 The bit statistics are circuit-exact, not a DEM approximation: correlated
 bits of a depolarizing channel (e.g. the X and Z flips of a Y outcome) come
-from the same uniform draw. The products run in float32 on 0/1 operands:
-with TF32 off (the package's policy) every partial sum is an integer below
-2^24 and exact, so the parity is exact too. (cuBLAS has no integer GEMM
-behind torch.matmul, and a bfloat16 product would round sums above 256.)
+from the same uniform draw.
+
+Two routes compute a sample from the same draw table (`_draw_table`):
+
+  * CUDA tensors: one kernel launch (`sampler_cuda.walk`, `csrc/fast_sampler.cu`).
+    One thread walks a shot's draws, drawn with Philox4x32-10 keyed from the
+    caller's generator on the card, and XORs the rare hits' signatures into
+    the shot's bitset; the uint8 rows are written once.
+  * any other device: the op route, the kernel's plain twin. It draws with
+    torch.rand / torch.randint, compares, and multiplies each 0/1 bit block
+    by its rows of F in float32: with TF32 off (the package's policy) every
+    partial sum is an integer below 2^24 and exact, so the parity is exact
+    too.
+
+Fed the same uniforms (`sample.draws`, `sampler_cuda.walk(..., draws=)`) the
+two routes agree bit for bit; from a generator they draw different streams,
+as CUDA and CPU generators always did.
 
 Reset frame-randomization bits (z-plane, p = 1/2) provably cancel in every
 detector and observable, so they are never sampled: build_fast_sampler
@@ -37,23 +48,27 @@ import torch
 from ..utils.observability import span
 from .circuits import Circuit, detector_matrix, observable_matrix
 from .dem import _propagate_faults
+from . import sampler_cuda
 
 _EXACT_F32 = 1 << 24      # float32 holds every integer below this exactly
 
 
 def build_fast_sampler(circuit: Circuit, shots: int,
                        device: Union[str, torch.device] = "cuda"):
-    """Compile `circuit` into a single-matmul detector sampler on `device`.
+    """Compile `circuit` into a detector sampler on `device`.
 
     Returns sample(generator) -> {"detectors": (shots, n_det) uint8,
                                   "observables": (shots, n_obs) uint8,
                                   "heralds": (shots, n_erase) uint8},
     tensors on `device`; `generator` is a torch.Generator on that device.
+    On a CUDA device a call is one kernel launch; elsewhere the op route.
     The returned function also carries the host build products:
     `faults` (the fault sites, in the form dem._propagate_faults takes),
     `meas_flip_rows` ((site row, record index) of measurement flips),
     `Fd` / `Fo` (the site -> detector / observable signature matrices,
-    int8, rows in site order) and `erasure_meta`.
+    int8, rows in site order), `erasure_meta`, the draw table (`table`,
+    `order`, and `device_table` on a CUDA device), and the op route's two
+    halves: `draws(generator)` -> (u, ebits) and `op_route(u, ebits)`.
     """
     dev = torch.device(device)
     faults: List[Tuple] = []          # for _propagate_faults
@@ -141,7 +156,7 @@ def build_fast_sampler(circuit: Circuit, shots: int,
     n_det, n_obs = Dmat.shape[0], Omat.shape[0]
 
     # reset-gauge sites (z-plane after every R/MR): must cancel in every
-    # detector/observable for the one-matmul form to be exact. Verify.
+    # detector/observable for the sampled signatures to be exact. Verify.
     gauge_faults = []
     for ii, ins in enumerate(circuit.instructions):
         if ins.name in ("R", "MR"):
@@ -168,13 +183,6 @@ def build_fast_sampler(circuit: Circuit, shots: int,
         Fd = np.zeros((0, n_det), np.int8)
         Fo = np.zeros((0, n_obs), np.int8)
 
-    def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    # device constants: float32 thresholds and 0/1 signature matrices
-    bern_t, dep1_t, dep2_t, erase_t = (put(a) for a in
-                                       (bern_p, dep1_p, dep2_p, erase_p))
-    pair_cum_t = put(np.asarray(pair_cum, np.float32).reshape(-1, 15))
     rows = {
         "bern": np.asarray(rows_bern, np.int64),
         "d1x": np.asarray(rows_dep1_x, np.int64),
@@ -184,34 +192,10 @@ def build_fast_sampler(circuit: Circuit, shots: int,
         "erx": np.asarray(rows_erase_x, np.int64),
         "erz": np.asarray(rows_erase_z, np.int64),
     }
-    # sites were appended in circuit order interleaved across groups:
-    # reorder F rows into the order sample() emits its bit blocks
-    order = np.concatenate([
-        rows["bern"],
-        rows["d1x"], rows["d1z"],
-        rows["d2"][:, 0], rows["d2"][:, 1],
-        rows["d2"][:, 2], rows["d2"][:, 3],
-        rows["pair"][:, 0], rows["pair"][:, 1],
-        rows["pair"][:, 2], rows["pair"][:, 3],
-        rows["erx"], rows["erz"],
-    ]) if n_sites else np.zeros(0, np.int64)
-
-    nb, n1 = len(bern_p), len(dep1_p)
-    nd2, n2, ne = len(dep2_p), len(pair_cum), len(erase_p)
-
-    # per-block F segments: one product per bit block, accumulated, so the
-    # concatenated (shots, n_sites) fault matrix is never materialized
-    seg_sizes = [nb, n1, n1, nd2, nd2, nd2, nd2, n2, n2, n2, n2, ne, ne]
-    splits = np.cumsum(seg_sizes)[:-1]
-    Fd_segs = [put(a) for a in np.split(Fd[order], splits) if a.shape[0]]
-    Fo_segs = [put(a) for a in np.split(Fo[order], splits) if a.shape[0]]
-
-    def _pair_bits(idx, blocks):
-        pa, pb = idx // 4, idx % 4
-        blocks.append((pa == 1) | (pa == 2))                    # xa
-        blocks.append((pa == 2) | (pa == 3))                    # za
-        blocks.append((pb == 1) | (pb == 2))                    # xb
-        blocks.append((pb == 2) | (pb == 3))                    # zb
+    order, table = _draw_table(bern_p, dep1_p, dep2_p, pair_cum, erase_p,
+                               rows, Fd, Fo)
+    nb, n1, nd2, n2, ne = table["counts"]
+    cols = np.cumsum([0, nb, n1, nd2, n2, ne])     # each kind's draw columns
 
     # erasure metadata for heralded decoding: detector/observable
     # signatures of each erase site's x- and z-fault (host numpy)
@@ -219,60 +203,176 @@ def build_fast_sampler(circuit: Circuit, shots: int,
         "x_det": Fd[rows["erx"]], "z_det": Fd[rows["erz"]],
         "x_obs": Fo[rows["erx"]], "z_obs": Fo[rows["erz"]],
     }
+    device_table = sampler_cuda.tables(table, dev) if dev.type == "cuda" else None
 
-    def uniform(gen, *shape):
-        return torch.rand(shape, generator=gen, device=dev)
+    def draws(generator: torch.Generator):
+        """The op route's draws: u (shots, n_draws) float32 uniforms in the
+        table's order and the erasures' Pauli bits (shots, n_erase, 2)
+        uint8, drawn from `generator` one block of uniforms a kind, in the
+        table's order, then the bits."""
+        us = [torch.rand((shots, n), generator=generator, device=dev)
+              for n in (nb, n1, nd2, n2, ne) if n]
+        ebits = (torch.randint(0, 2, (shots, ne, 2), generator=generator,
+                               device=dev, dtype=torch.uint8) if ne else
+                 torch.zeros((shots, 0, 2), dtype=torch.uint8, device=dev))
+        u = (torch.cat(us, dim=1) if us else
+             torch.zeros((shots, 0), dtype=torch.float32, device=dev))
+        return u, ebits
 
-    def sample(generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        with span("nqs.sample"):
-            return _sample(generator)
+    consts: Dict[torch.device, tuple] = {}
 
-    def _sample(generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        blocks = []
+    def op_route(u: torch.Tensor, ebits: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The plain twin of the kernel: compares of the given draws with
+        the table's float32 thresholds, then one 0/1 float32 product of each
+        bit block with its rows of the signature matrices (exact: every
+        partial sum is an integer below 2^24)."""
+        d = u.device
+        if d not in consts:
+            t = table["rec"].view(np.float32)
+            consts[d] = (torch.as_tensor(t[:, 1], device=d),
+                         torch.as_tensor(t[:, 2], device=d),
+                         torch.as_tensor(t[:, 3], device=d),
+                         torch.as_tensor(table["cum"], device=d),
+                         torch.as_tensor(Fd[order], dtype=torch.float32, device=d),
+                         torch.as_tensor(Fo[order], dtype=torch.float32, device=d))
+        thr, thr_a, thr_b, cum_t, Fd_t, Fo_t = consts[d]
+        blocks = []                    # the fault bits, in `order`'s blocks
+
+        def pair_bits(idx):
+            pa, pb = idx // 4, idx % 4
+            blocks.append((pa == 1) | (pa == 2))                    # xa
+            blocks.append((pa == 2) | (pa == 3))                    # za
+            blocks.append((pb == 1) | (pb == 2))                    # xb
+            blocks.append((pb == 2) | (pb == 3))                    # zb
+
+        def kind(k):                   # the draws of kind k: columns, thresholds
+            c = slice(cols[k], cols[k + 1])
+            return u[:, c], thr[c]
+
         if nb:
-            blocks.append(uniform(generator, shots, nb) < bern_t)
+            ub, p = kind(0)
+            blocks.append(ub < p)
         if n1:
-            u = uniform(generator, shots, n1)
-            blocks.append(u < 2.0 * dep1_t / 3.0)                    # x bits
-            blocks.append((u >= dep1_t / 3.0) & (u < dep1_t))        # z bits
+            ub, p = kind(1)
+            c = slice(cols[1], cols[2])
+            blocks.append(ub < thr_a[c])                            # x: u < 2p/3
+            blocks.append((ub >= thr_b[c]) & (ub < p))              # z: p/3 <= u < p
         if nd2:
             # uniform 15-outcome depolarizing pair channels: index map
-            u = uniform(generator, shots, nd2)
-            hit = u < dep2_t
-            idx = torch.floor(u / dep2_t.clamp_min(1e-30) * 15.0
-                              ).to(torch.int32) + 1
-            _pair_bits(torch.where(hit, idx.clamp_max(15), 0), blocks)
+            ub, p = kind(2)
+            idx = torch.floor(ub / p.clamp_min(1e-30) * 15.0).to(torch.int32) + 1
+            pair_bits(torch.where(ub < p, idx.clamp_max(15), 0))
         if n2:
             # general two-qubit Pauli channels: cumulative table lookup
-            u = uniform(generator, shots, n2, 1)
-            idx = (u >= pair_cum_t[None]).sum(dim=-1, dtype=torch.int32)
-            hit = u[..., 0] < pair_cum_t[:, -1]
-            _pair_bits(torch.where(hit, idx + 1, 0), blocks)
-        heralds = torch.zeros((shots, ne), dtype=torch.uint8, device=dev)
+            ub, p = kind(3)
+            idx = (ub[..., None] >= cum_t[None]).sum(dim=-1, dtype=torch.int32)
+            pair_bits(torch.where(ub < p, idx + 1, 0))
+        heralds = torch.zeros((shots, ne), dtype=torch.uint8, device=d)
         if ne:
-            u = uniform(generator, shots, ne)
-            bits = torch.randint(0, 2, (shots, ne, 2), generator=generator,
-                                 device=dev, dtype=torch.uint8)
-            hit = u < erase_t
+            ub, p = kind(4)
+            hit = ub < p
             heralds = hit.to(torch.uint8)   # erasures announce themselves
-            blocks.append(hit & (bits[..., 0] > 0))
-            blocks.append(hit & (bits[..., 1] > 0))
-        dets = torch.zeros((shots, n_det), dtype=torch.float32, device=dev)
-        obs = torch.zeros((shots, n_obs), dtype=torch.float32, device=dev)
-        for b, Fd_s, Fo_s in zip(blocks, Fd_segs, Fo_segs):
+            blocks.append(hit & (ebits[..., 0] > 0))
+            blocks.append(hit & (ebits[..., 1] > 0))
+        dets = torch.zeros((shots, n_det), dtype=torch.float32, device=d)
+        obs = torch.zeros((shots, n_obs), dtype=torch.float32, device=d)
+        r = 0
+        for b in blocks:
             eb = b.to(torch.float32)
-            dets += eb @ Fd_s
-            obs += eb @ Fo_s
+            dets += eb @ Fd_t[r:r + b.shape[1]]
+            obs += eb @ Fo_t[r:r + b.shape[1]]
+            r += b.shape[1]
         return {"detectors": (dets.to(torch.int32) & 1).to(torch.uint8),
                 "observables": (obs.to(torch.int32) & 1).to(torch.uint8),
                 "heralds": heralds}
+
+    def sample(generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        with span("nqs.sample"):
+            if device_table is not None:
+                d, o, h = sampler_cuda.walk(device_table, shots, generator=generator)
+                return {"detectors": d, "observables": o, "heralds": h}
+            return op_route(*draws(generator))
 
     sample.faults = faults
     sample.meas_flip_rows = meas_flip_rows
     sample.Fd = Fd
     sample.Fo = Fo
     sample.erasure_meta = erasure_meta
+    sample.order = order
+    sample.table = table
+    sample.device_table = device_table
+    sample.draws = draws
+    sample.op_route = op_route
     return sample
+
+
+def _draw_table(bern_p, dep1_p, dep2_p, pair_cum, erase_p, rows, Fd, Fo):
+    """The fault sites as the kernel walks them: (order, table).
+
+    One entry a uniform draw, in the op route's draw order: the Bernoulli
+    sites, DEPOLARIZE1, DEPOLARIZE2, PAULI_CHANNEL_2, ERASE. `order` lists
+    the site rows of the fault bits in the op route's block order (all x
+    bits of DEPOLARIZE1, then all z bits; the four bits xa, za, xb, zb of
+    the pair channels block by block; the erasures' x, then z bits), so a
+    draw of kind k whose first bit is b0 has its bits at b0 + j * stride[k].
+    The table holds
+
+      rec (n_draws, 4) int32      kind | b0 << 3; then float32 bits of t, a, b:
+                                  t the hit threshold (no bit below it is
+                                  set once u >= t); DEPOLARIZE1: a = 2p/3
+                                  (x), b = p/3 (z from it up to t = p);
+                                  PAULI_CHANNEL_2: a is the draw's row of
+                                  `cum`; ERASE: a is the erasure's index
+      cum (n_pair, 15) float32    PAULI_CHANNEL_2's cumulative tables
+      sig_ptr, sig_col int32      CSR signature of each fault bit (a row of
+                                  [Fd | Fo][order]): its detector columns,
+                                  then n_det + its observables
+      strides (5,) int32          the bit stride of each kind
+      counts                      the draws of each kind
+
+    The float32 thresholds are computed here, once, and both routes compare
+    with them: 2p/3 as (2 * p32) / 3 and p/3 as p32 / 3 in float32 division
+    on the host, so the kernel and its twin agree to the last bit.
+    """
+    f32 = np.float32
+    counts = tuple(len(a) for a in (bern_p, dep1_p, dep2_p, pair_cum, erase_p))
+    nb, n1, nd2, n2, ne = counts
+    kind = np.repeat(np.arange(5, dtype=np.int64), counts)
+    strides = np.array([1, n1, nd2, n2, ne], np.int64)
+    first = np.cumsum([0, nb, 2 * n1, 4 * nd2, 4 * n2])      # each kind's bit block
+    b0 = first[kind] + np.concatenate([np.arange(n, dtype=np.int64) for n in counts])
+    p = np.concatenate([np.asarray(a, np.float64) for a in (bern_p, dep1_p, dep2_p)]
+                       + [np.zeros(n2), np.asarray(erase_p, np.float64)]).astype(f32)
+    cum = np.asarray(pair_cum, np.float64).reshape(-1, 15).astype(f32)
+    t = p.copy()
+    t[kind == 3] = cum[:, -1]
+    a = np.zeros(len(kind), f32)
+    b = np.zeros(len(kind), f32)
+    d1 = kind == 1
+    a[d1] = f32(2.0) * p[d1] / f32(3.0)
+    b[d1] = p[d1] / f32(3.0)
+    ia = np.zeros(len(kind), np.int32)
+    ia[kind == 3] = np.arange(n2)
+    ia[kind == 4] = np.arange(ne)
+    rec = np.zeros((len(kind), 4), np.int32)
+    rec[:, 0] = kind | (b0 << 3)
+    rec[:, 1] = t.view(np.int32)
+    rec[:, 2] = np.where((kind == 3) | (kind == 4), ia, a.view(np.int32))
+    rec[:, 3] = b.view(np.int32)
+    order = np.concatenate([
+        rows["bern"],
+        rows["d1x"], rows["d1z"],
+        rows["d2"][:, 0], rows["d2"][:, 1], rows["d2"][:, 2], rows["d2"][:, 3],
+        rows["pair"][:, 0], rows["pair"][:, 1], rows["pair"][:, 2], rows["pair"][:, 3],
+        rows["erx"], rows["erz"],
+    ]).astype(np.int64)
+    r, c = np.nonzero(np.concatenate([Fd[order], Fo[order]], axis=1))
+    sig_ptr = np.zeros(len(order) + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=len(order)), out=sig_ptr[1:])
+    return order, {"rec": rec, "cum": cum, "sig_ptr": sig_ptr.astype(np.int32),
+                   "sig_col": c.astype(np.int32), "strides": strides.astype(np.int32),
+                   "counts": counts, "n_det": Fd.shape[1], "n_obs": Fo.shape[1],
+                   "n_erase": ne}
 
 
 def sample_circuit_fast(circuit: Circuit, shots: int, seed: int = 0,

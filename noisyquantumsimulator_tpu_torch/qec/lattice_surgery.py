@@ -21,7 +21,7 @@ Protocol (rough merge of two distance-d rotated patches):
   4. The two patches then run `rounds_after` normal rounds and are read out
      transversally.
 
-`run_zz_surgery` samples with the port's one-matmul fast sampler on the
+`run_zz_surgery` samples with the port's fast (signature) sampler on the
 device (a torch.Generator seeded from `seed`) and decodes with the native
 C++ exact matcher (`decoder_for_circuit(kind="native")`). When that library
 cannot be built it raises: the port never switches to the greedy matcher
@@ -358,7 +358,7 @@ def run_zz_surgery(d: int = 3, rounds_merge: int = 0, rounds_after: int = 0,
                    p: float = 1e-3, shots: int = 20000, seed: int = 0,
                    decode: bool = True,
                    device: Union[str, torch.device] = "cuda") -> Dict:
-    """Sample the full merge/split protocol with the one-matmul sampler on
+    """Sample the full merge/split protocol with the fast sampler on
     `device`.
 
     Returns raw (undecoded) flip rates for the ZZ outcome and both patch

@@ -71,7 +71,7 @@ def run_memory(
 ) -> MemoryResult:
     """Surface-code memory experiment (basis "Z" or "X") on `device`.
 
-    sampler_kind: "fast" is the one-matmul sampler (fast_sampler.py),
+    sampler_kind: "fast" is the signature sampler (fast_sampler.py),
     "frame" the per-instruction Pauli-frame sampler; "fast" takes the frame
     sampler for circuits with non-deterministic detectors. decoder: "auto",
     "matching" (batched greedy), "uf", "native", "cluster",

@@ -1,7 +1,7 @@
 """Neural-network decoder: an MLP over detector bits, trained on the device.
 
 Counterpart of the reference's `qec/nn_decoder.py` (the original project's
-"NN decoders" spec item). Training data comes from the one-matmul fast
+"NN decoders" spec item). Training data comes from the fast (signature)
 sampler, a fresh labeled batch each step, so the loop - sample -> forward
 -> loss -> update - runs on the device with no host data pipeline. The
 label is the true logical flip (an observable bit); the decoder learns

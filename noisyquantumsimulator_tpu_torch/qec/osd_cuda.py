@@ -23,9 +23,8 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .._kernels import MAX_SMEM_BYTES
 from .native import osd0_batch_native
-
-MAX_SMEM_BYTES = 232448    # 227 KB: the most dynamic shared memory an H100 block takes
 
 
 def gf2_rank(H: np.ndarray) -> int:

@@ -11,8 +11,8 @@ is off) reduced mod 2.
 
 After a reset the z frame is randomized (Stim's trick, which makes the
 frame distribution correct for circuits with resets), so this sampler also
-serves circuits whose detectors are not deterministic, where the one-matmul
-fast sampler refuses.
+serves circuits whose detectors are not deterministic, where the fast
+(signature) sampler refuses.
 
 Randomness comes from an explicit torch.Generator on the sampler's device
 where the reference splits jax.random keys: the two agree in distribution,

@@ -15,8 +15,10 @@ order of a float32 sum of <= d_max terms: hard decisions equal, beliefs
 within one storage ulp, each reported with how many differ. OSD-0's kernel
 is bit-exact against its twin, the host C++ OSD-0, at the gross code's DEM.
 The surface-code matchers (plain torch ops, no kernel of their own) are
-bit-identical on the card and on the CPU; the fast sampler's detector rates
-lie within 5 binomial sigma of the DEM's analytic rates. The architecture
+bit-identical on the card and on the CPU. The sampler kernel is bit-exact
+against its twin, the op route, fed the same draws, and draws the stated
+Philox stream; its detector (and the gross code's pair) rates lie within 5
+binomial sigma of the DEM's analytic rates. The architecture
 loop's executor (torch ops) gives per-qubit frame rates within 5 binomial
 sigma of their exact marginals (`exact_frame_rates`, shared with the CPU
 tests); the density-matrix simulator on the card equals the CPU's to 1e-6.
@@ -878,6 +880,126 @@ def test_surface_sampler_rates_match_dem_cuda(cuda):
     emp = (build_fast_sampler(circuit, N, cuda)(g)["detectors"]
            .sum(dim=0, dtype=torch.int64).cpu().numpy() / N)
     assert (np.abs(emp - rate) / np.sqrt(rate * (1 - rate) / N)).max() <= 5.0
+
+
+# --- the sampler kernel: the op route over the same draws, the DEM ---------
+
+def _sampler_circuit(name):
+    from noisyquantumsimulator_tpu_torch.qec.ldpc import bb_memory_circuit, gross_code
+    from noisyquantumsimulator_tpu_torch.qec.surface_code import memory_z_circuit
+    from test_torch_fast_sampler import every_kind_circuit
+    return {"gross": lambda: bb_memory_circuit(*gross_code(), 3, 1e-3),
+            "surface7": lambda: memory_z_circuit(7, 7, p=1e-3),
+            "every_kind": every_kind_circuit}[name]()
+
+
+@pytest.mark.parametrize("name", ["gross", "surface7", "every_kind"])
+def test_sampler_kernel_bit_exact_vs_op_route_on_given_draws(cuda, name):
+    """Fed the op route's own uniforms and erasure bits, the kernel gives
+    its detectors, observables and heralds bit for bit: the gross code (3
+    rounds, p = 1e-3), d = 7 (p = 1e-3), and a circuit with every site kind
+    (Bernoulli, DEPOLARIZE1, DEPOLARIZE2, PAULI_CHANNEL_2, ERASE) at p = 2e-2."""
+    from noisyquantumsimulator_tpu_torch.qec import sampler_cuda
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    s = build_fast_sampler(_sampler_circuit(name), 4096, cuda)
+    u, ebits = s.draws(_card_gen(41))
+    want = s.op_route(u, ebits)
+    before = sampler_cuda.walk.launches
+    got = sampler_cuda.walk(s.device_table, 4096, draws=(u, ebits))
+    torch.cuda.synchronize()
+    assert sampler_cuda.walk.launches == before + 1
+    for g, key in zip(got, ("detectors", "observables", "heralds")):
+        assert torch.equal(g, want[key]), key
+    assert want["detectors"].any()
+    if name == "every_kind":
+        assert want["heralds"].any() and all(s.table["counts"])
+
+
+@pytest.mark.parametrize("name", ["gross", "every_kind"])
+def test_sampler_kernel_draws_the_stated_philox_stream(cuda, name):
+    """From a generator the kernel draws Philox4x32-10 under the key that
+    its first draw on the card gives, at counter (draw / 4, shot): its
+    shots equal a numpy walk of the table over those draws."""
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    from test_torch_fast_sampler import numpy_walk, philox_draws
+    s = build_fast_sampler(_sampler_circuit(name), 2048, cuda)
+    key = torch.empty(2, dtype=torch.int64, device=cuda).random_(
+        0, 1 << 32, generator=_card_gen(77)).cpu().numpy()
+    got = s(_card_gen(77))
+    want = numpy_walk(s.table, *philox_draws(s.table, 2048, key))
+    for g, w in zip((got["detectors"], got["observables"], got["heralds"]), want):
+        assert np.array_equal(g.cpu().numpy(), w)
+    assert got["detectors"].any()
+
+
+def test_sampler_kernel_draws_by_seed_and_not_by_layout(cuda):
+    """One seed gives the same shots twice, another seed other shots; the
+    first 4096 rows at 2^18 shots a call (one thread a shot, 256 a block)
+    equal those at 4096 shots a call (8 threads a shot, 32 shots a block)."""
+    from noisyquantumsimulator_tpu_torch.qec import sampler_cuda
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    circuit = _sampler_circuit("gross")
+    small, big = (build_fast_sampler(circuit, n, cuda) for n in (4096, 1 << 18))
+    assert sampler_cuda.layout(300, 2088, 4096)[:2] == (32, 8)
+    assert sampler_cuda.layout(300, 2088, 1 << 18)[:2] == (256, 1)
+    a, b, c = small(_card_gen(8)), small(_card_gen(8)), small(_card_gen(9))
+    for key in a:
+        assert torch.equal(a[key], b[key])
+    assert not torch.equal(a["detectors"], c["detectors"])
+    wide = big(_card_gen(8))
+    for key in a:
+        assert torch.equal(wide[key][:4096], a[key])
+
+
+def test_gross_sampler_rates_and_pairs_match_dem_cuda(cuda):
+    """The kernel's gross-code shots (3 rounds, p = 1e-3, N = 2^18) fire each
+    detector and observable, and each pair of detectors that share a
+    mechanism, at the DEM's exact rates within 5 binomial sigma (counts of
+    variance >= 25, as the benchmark's `rate_z`)."""
+    from noisyquantumsimulator_tpu_torch.qec.dem import build_dem
+    from noisyquantumsimulator_tpu_torch.qec.fast_sampler import build_fast_sampler
+    circuit = _sampler_circuit("gross")
+    mechs = build_dem(circuit).merged().mechanisms
+    n_det, n_obs = circuit.n_detectors, circuit.n_observables
+    H = np.zeros((n_det + n_obs, len(mechs)), np.int64)
+    for j, m in enumerate(mechs):
+        H[list(m.detectors), j] = 1
+        H[[n_det + o for o in range(n_obs) if m.observables >> o & 1], j] = 1
+    lf = np.log(np.abs(1.0 - 2.0 * np.array([m.probability for m in mechs])))
+    e1 = np.exp(H @ lf)                                   # E[(-1)^x] of each column
+    rate = (1.0 - e1) / 2.0
+    a, b = np.nonzero(np.triu(H[:n_det] @ H[:n_det].T, 1))
+    e_ab = np.exp(((H[a] ^ H[b]) * lf).sum(axis=1))       # E[(-1)^(x_a + x_b)]
+    both = (1.0 - e1[a] - e1[b] + e_ab) / 4.0
+    N = 1 << 18
+    o = build_fast_sampler(circuit, N, cuda)(_card_gen(5))
+    x = torch.cat([o["detectors"], o["observables"]], dim=1).to(torch.float32)
+    fired = x.sum(dim=0).cpu().numpy()
+    pairs = (x[:, :n_det].T @ x[:, :n_det]).cpu().numpy()[a, b]
+    count = np.concatenate([fired, pairs])
+    prob = np.concatenate([rate, both])
+    var = N * prob * (1 - prob)
+    keep = var >= 25
+    assert keep.sum() > 3000
+    z = (count[keep] - N * prob[keep]) / np.sqrt(var[keep])
+    assert np.abs(z).max() <= 5.0
+
+
+def test_bench_steps_launch_the_sampler_kernel_once(cuda, gross_rep):
+    """Each `bench_bb` step and each `bench_qec` step samples in exactly one
+    launch of the sampler kernel."""
+    from noisyquantumsimulator_tpu_torch import bench_qec
+    from noisyquantumsimulator_tpu_torch.qec import sampler_cuda
+    w = gross_rep[0]
+    for seed in (3, 4):
+        before = sampler_cuda.walk.launches
+        w.step(_card_gen(seed))
+        assert sampler_cuda.walk.launches == before + 1
+    q = bench_qec.build_qec_workload(7, 7, 1e-3, 16384, cuda)
+    for seed in (3, 4):
+        before = sampler_cuda.walk.launches
+        q.step(_card_gen(seed))
+        assert sampler_cuda.walk.launches == before + 1
 
 
 # --- the architecture loop: helpers shared with the CPU tests --------------

@@ -23,6 +23,9 @@ PEAK_FP32 = 67e12
 PEAK_FP64 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# INT32 operations: 64 INT32 lanes a streaming multiprocessor, 132 of them,
+# at the 1.98 GHz boost clock
+PEAK_INT32 = 132 * 64 * 1.98e9
 
 
 def gate_plan(dim, n_steps=300):
